@@ -1,0 +1,50 @@
+"""The staged power-pass products: stage P = X·Q, then sweep ΔY = AᵀP.
+
+Port of the staged schedule of ``repro/kernels/powerpass.py``, the one
+the reference's own schedule rule picks at Europarl width:
+
+- :func:`proj_stage` — P = X·Q in f32, the port of ``_proj_stage_kernel``;
+- :func:`powerpass_sweep` — ΔY = Aᵀ·P, the port of
+  ``_powerpass_sweep_kernel``;
+- :func:`power_project_accumulate` — stage then sweep, as ``_staged_call``.
+
+The TPU kernels bucket ΔY's rows to fit VMEM and keep P padded to 128
+between the phases.  Here each phase is one CUDA launch over an
+(output tiles) grid that contracts its whole K range inside a block, and
+P is the exact (n, k̃) f32 tensor: nothing is padded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .matmul import gemm_nn, gemm_tn, on_cpu
+
+
+def proj_stage(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """P = x·q in f32.  x: (n, d), q: (d, k̃) → (n, k̃)."""
+    if on_cpu(x, q):
+        return ref.proj_stage_ref(x, q)
+    return gemm_nn("proj_stage", x, q)
+
+
+def powerpass_sweep(a: torch.Tensor, p: torch.Tensor, *,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """ΔY = aᵀ·p in f32.  a: (n, da), p: (n, k̃) → (da, k̃).
+
+    With ``out`` (a (da, k̃) f32 accumulator) the kernel adds ΔY into
+    ``out`` in place, after the full contraction — the same rounding as
+    ``out + ΔY`` — and returns ``out``.  At Europarl width that saves a
+    4.3 GB ΔY temporary per view and chunk.
+    """
+    if on_cpu(a, p, *(() if out is None else (out,))):
+        dY = ref.powerpass_sweep_ref(a, p)
+        return dY if out is None else out.add_(dY)
+    return gemm_tn("powerpass_sweep", a, p, out)
+
+
+def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, *,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """ΔY = aᵀ(b·q): stage P = b·q once, then sweep (2 launches)."""
+    return powerpass_sweep(a, proj_stage(b, q), out=out)

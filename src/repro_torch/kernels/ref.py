@@ -1,0 +1,48 @@
+"""Plain PyTorch versions of every kernel of the port.
+
+Port of ``repro/kernels/ref.py``.  Each wrapper in this package takes
+its plain version here for a CPU tensor; ``chip_smoke.py`` holds each
+CUDA kernel against the same function on the card.  All products run
+in f32, as the kernels do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+f32 = torch.float32
+
+
+def proj_stage_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """P = x · q in f32 (``_proj_stage_kernel``)."""
+    return x.to(f32) @ q.to(f32)
+
+
+def powerpass_sweep_ref(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """ΔY = aᵀ · p in f32 (``_powerpass_sweep_kernel``)."""
+    return a.to(f32).T @ p.to(f32)
+
+
+def gram_sweep_ref(p: torch.Tensor) -> torch.Tensor:
+    """C = pᵀ · p in f32 (``_gram_sweep_kernel``)."""
+    p = p.to(f32)
+    return p.T @ p
+
+
+def matmul_tn_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """O = xᵀ · y in f32 (``_mm_tn_kernel``)."""
+    return x.to(f32).T @ y.to(f32)
+
+
+def power_pass_ref(a, b, Qa, Qb):
+    """One chunk of the range-finder pass: (ΔYa, ΔYb)."""
+    pb = proj_stage_ref(b, Qb)
+    pa = proj_stage_ref(a, Qa)
+    return powerpass_sweep_ref(a, pb), powerpass_sweep_ref(b, pa)
+
+
+def final_pass_ref(a, b, Qa, Qb):
+    """One chunk of the final pass: (ΔCa, ΔCb, ΔF)."""
+    pa = proj_stage_ref(a, Qa)
+    pb = proj_stage_ref(b, Qb)
+    return gram_sweep_ref(pa), gram_sweep_ref(pb), matmul_tn_ref(pa, pb)
