@@ -5,22 +5,36 @@
 
 Phases, each of which fails the run by raising:
 
-1. device — needs CUDA; prints the card's name and power limit; turns
+1. device — needs CUDA; prints the card's name and power limit and the
+   host's memory (the merge stack's closed groups live there); turns
    TF32 off for every f32 product;
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels — each of the four entry points against its plain PyTorch
-   version on the card, at the main path's shapes (8192 rows, d = 2^19,
-   k̃ = 2060, from the planted generator) and at two ragged small
-   shapes: max error, bitwise repeatability, median times beside the
-   plain version, one ``torch.matmul`` of the same product (yardstick
-   only) and the bound;
-4. fit — the smoke width against the exact dense CCA, then the main
+3. kernels — each of the four GEMM entry points against its plain
+   PyTorch version on the card, at the main path's shapes (8192 rows,
+   d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
+   small shapes: max error, bitwise repeatability, median times beside
+   the plain version, one ``torch.matmul`` of the same product
+   (yardstick only) and the bound;
+4. omega — ``omega_fill`` makes the full (2^19, 2060) Ω(seed): within
+   8 ulp of the plain generator on the card and, at three slabs, of the
+   plain CPU ``dense_omega``; a slab at r0 = 2^18 + 16 is bitwise that
+   slice of the full Ω; a ragged (300, 70) Ω padded to (384, 128) has
+   exact zeros outside;
+5. seeded — ``proj_stage_seeded`` at 8192 × 2^19 → 2060 and one ragged
+   shape against its plain version (4·√K·u) and bitwise against
+   ``proj_stage(x, omega_fill(seed))``, with times; the library
+   yardstick is ``torch.matmul(x, Ω)`` with Ω made beforehand;
+6. fit — the smoke width against the exact dense CCA, then the main
    path: ``repro_torch.launch.cca_fit`` at Europarl width (da = db =
    2^19, k = 60, p = 2000, q = 1, ν = 0.01, chunk 8192; n cut to
    16 chunks = 131,072 rows for the time limit, two merge groups, so the
-   pairwise tree merges full-width stats once) with ``engine="kernels"``,
-   launch counters zeroed just before and read just after, then with
-   ``engine="torch"`` on the same data and Ω; their ρ must agree.
+   pairwise tree merges full-width stats once), each run with the launch
+   counters zeroed just before and read just after: ``engine="kernels"``
+   (its peak device memory must stay below the 69.47 GB the merge
+   stack reached while it kept closed groups on the card), then
+   ``engine="torch"`` on the same data and Ω (their ρ must agree), then
+   ``--omega seeded`` and ``--omega seeded-materialized``, whose ρ and
+   X must be bitwise equal, at 4 / 5 launches per power / final chunk.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON, and before that the card's name and power limit.
@@ -39,18 +53,39 @@ import time
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
+# int32 on the CUDA cores: 64 lanes per SM and clock against f32's 128,
+# so half the f32 FMA issue rate (33.5e12 FMA/s)
+INT32_PEAK_OPS = 16.75e12
 HBM_BYTES_PER_S = 3.35e12
 U = 2.0 ** -24  # f32 unit roundoff
 N_CHUNKS = 16  # two merge groups of 8: the pairwise tree merges once
 SEED = 0
+# Threefry-2x32-20 (60 add/rotate/xor, 5 two-add key injections, the key
+# schedule) and the two exponent patches: int32 operations per Ω element
+OMEGA_INT_OPS = 85
+OMEGA_ULP_BOUND = 8  # CUDA logf 1 ulp, cosf 2 ulp, one product rounding
+# the 16-chunk fit's peak while the merge stack kept closed groups on the card
+STACK_ON_CARD_PEAK_GB = 69.47
 
-SOURCE = "src/repro_torch/kernels/csrc/gemm_f32.cu"
+GEMM = "src/repro_torch/kernels/csrc/gemm_f32.cu"
+SOURCES = {name: GEMM for name in ("proj_stage", "powerpass_sweep", "gram_sweep",
+                                   "matmul_tn", "proj_stage_seeded")}
+SOURCES["omega_fill"] = "src/repro_torch/kernels/csrc/rand.cuh"
 REPLACES = {
     "proj_stage": "src/repro/kernels/powerpass.py:406",
     "powerpass_sweep": "src/repro/kernels/powerpass.py:445",
     "gram_sweep": "src/repro/kernels/projgram.py:362",
     "matmul_tn": "src/repro/kernels/matmul.py:54",
+    "omega_fill": "src/repro/kernels/rand.py:85",
+    "proj_stage_seeded": "src/repro/kernels/powerpass.py:423",
 }
+
+
+def mem_total() -> str:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return line.split(":", 1)[1].strip()
+    return "unknown"
 
 
 def card_line() -> str:
@@ -101,6 +136,15 @@ def cases(a, b, Qa, Qb):
     }
 
 
+def bound(flops: float, nbytes: float, int_ops: float = 0.0) -> dict:
+    """The least time for the work: operations (f32 FLOPs and int32 ops
+    both take issue slots) against bytes moved once."""
+    t_ops = flops / F32_PEAK_FLOPS + int_ops / INT32_PEAK_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def check(name, kernel, plain, K) -> float:
     """Kernel against plain on the same inputs, and two launches against
     each other; returns the max abs error.  Tolerance: 4·√K·u of the
@@ -126,12 +170,11 @@ def check(name, kernel, plain, K) -> float:
     return err
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, a, b) -> dict:
     import torch
 
     from repro_torch.configs.europarl_cca import config
     from repro_torch.core.rcca import draw_omega
-    from repro_torch.data import DevicePlantedChunks
     from repro_torch.kernels import powerpass_sweep, proj_stage
 
     g = torch.Generator(device=dev)
@@ -145,9 +188,6 @@ def phase_kernels(dev) -> dict:
             check(name, kern, plain, K)
 
     wl = config()
-    data = DevicePlantedChunks(wl.chunk, wl.da, wl.db, rank=2 * wl.rcca.k, seed=SEED,
-                               chunk=wl.chunk, device=dev)
-    a, b = data.get_chunk(0)
     Qa, Qb = draw_omega(SEED, wl.da, wl.db, wl.rcca, device=dev)
     rows = {}
     for name, (kern, plain, lib, K, flops, nbytes) in cases(a, b, Qa, Qb).items():
@@ -156,9 +196,7 @@ def phase_kernels(dev) -> dict:
         reps = 3 if heavy else 10
         t = {"ms": time_ms(kern, reps), "plain_ms": time_ms(plain, reps),
              "library_ms": time_ms(lib, reps)}
-        t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-        rows[name] = dict(max_abs_err=err, bound_ms=1e3 * max(t_ops, t_bytes),
-                          bound_by="operations" if t_ops >= t_bytes else "bytes", **t)
+        rows[name] = dict(max_abs_err=err, **bound(flops, nbytes), **t)
         print(f"[smoke] {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
               f"library {t['library_ms']:.3f} ms, bound {rows[name]['bound_ms']:.3f} ms "
               f"({rows[name]['bound_by']}); {flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
@@ -172,11 +210,129 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
+def ulp(x, y):
+    """Largest distance in f32 ulps between two f32 tensors (an order-
+    preserving integer map of the bits)."""
+    import torch
+
+    def key(v):
+        i = v.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(x) - key(y)).abs().max())
+
+
+def phase_omega(dev) -> dict:
+    """omega_fill at the main path's Ω, against the plain generator."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.kernels import rand
+
+    wl = config()
+    d, kt = wl.db, wl.rcca.sketch
+    seed = rand.omega_seeds(SEED)[1]
+    full, again = (rand.omega_fill(seed, d, kt, device=dev) for _ in range(2))
+    plain = rand.omega_tile(seed, d, kt, device=dev)
+    torch.cuda.synchronize()
+    err_ulp = ulp(full, plain)
+    err = float((full - plain).abs().max())
+    print(f"[smoke] omega_fill ({d}, {kt}): max {err_ulp} ulp (bound {OMEGA_ULP_BOUND}), "
+          f"max_abs_err={err:.3e} against the plain generator on the card; "
+          f"repeat_bitwise={torch.equal(full, again)}", flush=True)
+    if not err_ulp <= OMEGA_ULP_BOUND or not torch.equal(full, again):
+        raise AssertionError("omega_fill disagrees with its plain version")
+    for r0, rows in [(0, 2048), (2**18 + 16, 4096), (d - 1000, 1000)]:
+        want = rand.omega_tile(seed, d, kt, r0=r0, rows=rows, device="cpu")
+        slab = rand.omega_fill(seed, d, kt, r0=r0, rows=rows, device=dev)
+        u = ulp(slab.cpu(), want)
+        print(f"[smoke] omega_fill slab r0={r0} rows={rows}: max {u} ulp against the plain "
+              f"CPU dense_omega; bitwise the slice of the full Ω: "
+              f"{torch.equal(slab, full[r0:r0 + rows])}", flush=True)
+        if not u <= OMEGA_ULP_BOUND or not torch.equal(slab, full[r0:r0 + rows]):
+            raise AssertionError(f"omega_fill slab at r0={r0} is wrong")
+    pad = rand.omega_fill(seed, 300, 70, rows=384, cols=128, device=dev).cpu()
+    pad_want = rand.omega_tile(seed, 300, 70, rows=384, cols=128, device="cpu")
+    pad_ok = (bool((pad[300:] == 0).all()) and bool((pad[:, 70:] == 0).all())
+              and ulp(pad, pad_want) <= OMEGA_ULP_BOUND)
+    print(f"[smoke] omega_fill ragged (300, 70) padded to (384, 128): exact zeros outside "
+          f"and within bound inside: {pad_ok}", flush=True)
+    if not pad_ok:
+        raise AssertionError("omega_fill's ragged edge is wrong")
+    t = {"ms": time_ms(lambda: rand.omega_fill(seed, d, kt, device=dev), 10),
+         "plain_ms": time_ms(lambda: rand.omega_tile(seed, d, kt, device=dev), 3),
+         "library_ms": None}
+    row = dict(max_abs_err=err, **bound(0, 4 * d * kt, OMEGA_INT_OPS * d * kt), **t)
+    print(f"[smoke] omega_fill: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); no library call makes "
+          "this Ω", flush=True)
+    return row
+
+
+def phase_seeded(dev, b) -> dict:
+    """proj_stage_seeded at the main path's shape and a ragged one."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.kernels import proj_stage, proj_stage_seeded, rand, ref
+    from repro_torch.kernels.matmul import SEEDED_SLAB
+
+    wl = config()
+    kt = wl.rcca.sketch
+    seed = rand.omega_seeds(SEED)[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    small = torch.randn((333, 9001), generator=g, device=dev)
+    for x, k in [(small, 67), (b, kt)]:  # the main path's shape last
+        n, d = x.shape
+        err = check("proj_stage_seeded", lambda: proj_stage_seeded(x, seed, k),
+                    lambda: ref.proj_stage_seeded_ref(x, seed, k), d)
+        omega = rand.omega_fill(seed, d, k, device=dev)
+        same = torch.equal(proj_stage_seeded(x, seed, k), proj_stage(x, omega))
+        print(f"[smoke] proj_stage_seeded(x, seed) == proj_stage(x, omega_fill(seed)) "
+              f"bitwise at {tuple(x.shape)} → {k}: {same}", flush=True)
+        if not same:
+            raise AssertionError("proj_stage_seeded is not the materialized stage bitwise")
+    t = {"ms": time_ms(lambda: proj_stage_seeded(b, seed, kt), 3),
+         "plain_ms": time_ms(lambda: ref.proj_stage_seeded_ref(b, seed, kt), 3),
+         "library_ms": time_ms(lambda: b @ omega, 3)}
+    flops = 2 * n * d * kt
+    row = dict(max_abs_err=err, **bound(flops, 4 * (n * d + n * kt), OMEGA_INT_OPS * d * kt),
+               **t)
+    print(f"[smoke] proj_stage_seeded: kernel {t['ms']:.3f} ms "
+          f"({2 * -(-d // SEEDED_SLAB)} CUDA launches), plain {t['plain_ms']:.3f} ms, "
+          f"library {t['library_ms']:.3f} ms (torch.matmul(x, Ω), Ω made beforehand), "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); "
+          f"{flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    return row
+
+
+def run_fit(argv, label):
+    """One main-path run of the launcher: counters zeroed just before,
+    read just after; returns (report, launches, peak GB, wall s)."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import cca_fit
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = cca_fit.main(argv)
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[smoke] {label}: wall {wall:.3f} s, passes {rep.pass_seconds} s, "
+          f"peak memory {peak:.2f} GB, launches {launches}", flush=True)
+    return rep, launches, peak, wall
+
+
 def phase_fit(dev) -> dict:
+    """The smoke width, then the main path's four Europarl-width runs;
+    returns each kernel's launches in the run that drives it."""
     import torch
 
     from repro_torch.configs.europarl_cca import config, smoke_config
-    from repro_torch.kernels import ops as kops
     from repro_torch.launch import cca_fit
 
     # smoke width on the card against the exact dense CCA
@@ -191,38 +347,26 @@ def phase_fit(dev) -> dict:
     argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED)]
     print(f"[smoke] main path: Europarl width, n cut to {N_CHUNKS} chunks of 8192 rows "
           "(the time limit's cut)", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    kops.reset_launch_counts()
-    t0 = time.perf_counter()
-    rep_k = cca_fit.main(argv + ["--engine", "kernels"])
-    wall_k = time.perf_counter() - t0
-    launches = kops.launch_counts()
-    peak_k = torch.cuda.max_memory_allocated() / 1e9
+    rep_k, launches, peak_k, _ = run_fit(argv + ["--engine", "kernels"], "kernels engine")
     nc = rep_k.n_chunks
     want_power = {"proj_stage": 2 * nc, "powerpass_sweep": 2 * nc}  # 4 per chunk
     want_final = {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}  # 5 per chunk
-    print(f"[smoke] kernels engine: wall {wall_k:.3f} s, passes {rep_k.pass_seconds} s, "
-          f"peak memory {peak_k:.2f} GB, launches {launches}", flush=True)
     if rep_k.pass_launches != [want_power, want_final]:
         raise AssertionError(f"launches per pass {rep_k.pass_launches}, "
                              f"want {[want_power, want_final]}")
+    if not peak_k < STACK_ON_CARD_PEAK_GB:
+        raise AssertionError(f"peak memory {peak_k:.2f} GB: closed merge groups are not "
+                             f"leaving the card ({STACK_ON_CARD_PEAK_GB} GB when they stay)")
     rho_k = rep_k.result.rho.double().cpu()
     Xa_shape = tuple(rep_k.result.Xa.shape)
     finite = all(bool(torch.isfinite(t).all()) for t in rep_k.result[:3])
     del rep_k
-    torch.cuda.empty_cache()
 
-    torch.cuda.reset_peak_memory_stats()
-    kops.reset_launch_counts()
-    t0 = time.perf_counter()
-    rep_t = cca_fit.main(argv + ["--engine", "torch"])
-    wall_t = time.perf_counter() - t0
-    peak_t = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[smoke] torch engine: wall {wall_t:.3f} s, passes {rep_t.pass_seconds} s, "
-          f"peak memory {peak_t:.2f} GB, launches {kops.launch_counts()}", flush=True)
-    if kops.launch_counts():
+    rep_t, launches_t, _, _ = run_fit(argv + ["--engine", "torch"], "torch engine")
+    if launches_t:
         raise AssertionError("the torch engine launched a kernel")
     rho_t = rep_t.result.rho.double().cpu()
+    del rep_t
     gap = float((rho_k - rho_t).abs().max())
     print(f"[smoke] max |rho_kernels - rho_torch| = {gap:.3e} (limit 1e-3); "
           f"sum rho {float(rho_k.sum()):.6f} vs {float(rho_t.sum()):.6f}", flush=True)
@@ -234,7 +378,40 @@ def phase_fit(dev) -> dict:
         raise AssertionError("canonical correlations outside [0, 1]")
     if not gap <= 1e-3:
         raise AssertionError("kernels and torch engines disagree on rho")
-    return launches
+
+    # the seeded path and its bitwise oracle
+    rep_s, launches_s, peak_s, _ = run_fit(argv + ["--omega", "seeded"], "omega=seeded")
+    want_seeded = {"proj_stage_seeded": 2 * nc, "powerpass_sweep": 2 * nc}  # 4 per chunk
+    if rep_s.pass_launches != [want_seeded, want_final]:
+        raise AssertionError(f"seeded launches per pass {rep_s.pass_launches}, "
+                             f"want {[want_seeded, want_final]}")
+    seeded = [t.cpu() for t in rep_s.result[:3]]
+    del rep_s
+    rep_m, launches_m, peak_m, _ = run_fit(argv + ["--omega", "seeded-materialized"],
+                                           "omega=seeded-materialized")
+    # Ω for both views up front, then 4 per power chunk
+    want_oracle = {"omega_fill": 2, **want_power}
+    if rep_m.pass_launches != [want_oracle, want_final]:
+        raise AssertionError(f"seeded-materialized launches per pass {rep_m.pass_launches}, "
+                             f"want {[want_oracle, want_final]}")
+    oracle = [t.cpu() for t in rep_m.result[:3]]
+    del rep_m
+    same = [torch.equal(x, y) for x, y in zip(seeded, oracle)]
+    rho_s = seeded[2].double()
+    print(f"[smoke] seeded vs seeded-materialized bitwise (Xa, Xb, rho): {same}; "
+          f"sum rho {float(rho_s.sum()):.6f}; max |rho_seeded - rho_kernels| = "
+          f"{float((rho_s - rho_k).abs().max()):.3e} (another Ω)", flush=True)
+    print(f"[smoke] peak device memory, 16 chunks: materialized {peak_k:.2f} GB, "
+          f"seeded {peak_s:.2f} GB, seeded-materialized {peak_m:.2f} GB "
+          f"(closed groups kept on the card: {STACK_ON_CARD_PEAK_GB} GB)", flush=True)
+    if not all(same):
+        raise AssertionError("omega=seeded is not bitwise omega=seeded-materialized")
+    if not bool((torch.isfinite(rho_s) & (rho_s >= 0) & (rho_s <= 1 + 1e-5)).all()):
+        raise AssertionError("seeded fit's canonical correlations are not in [0, 1]")
+    if not peak_s < peak_k:
+        raise AssertionError("the seeded fit held more device memory than the materialized one")
+    return {**launches, "omega_fill": launches_m.get("omega_fill", 0),
+            "proj_stage_seeded": launches_s.get("proj_stage_seeded", 0)}
 
 
 def main() -> int:
@@ -256,6 +433,7 @@ def main() -> int:
 
     card = card_line()
     print(f"[smoke] card: {card}", flush=True)
+    print(f"[smoke] host MemTotal: {mem_total()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -271,12 +449,24 @@ def main() -> int:
         print(f"[smoke] nvcc {build.SOURCE.name} ({build.BUILD_LOG['seconds']:.2f} s):\n"
               f"{build.BUILD_LOG['log']}", flush=True)
 
-    rows = phase_kernels(dev)
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.data import DevicePlantedChunks
+
+    wl = config()
+    a, b = DevicePlantedChunks(wl.chunk, wl.da, wl.db, rank=2 * wl.rcca.k, seed=SEED,
+                               chunk=wl.chunk, device=dev).get_chunk(0)
+    rows = phase_kernels(dev, a, b)
+    torch.cuda.empty_cache()
+    rows["omega_fill"] = phase_omega(dev)
+    torch.cuda.empty_cache()
+    rows["proj_stage_seeded"] = phase_seeded(dev, b)
+    del a, b
     torch.cuda.empty_cache()
     launches = phase_fit(dev)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "launches": launches.get(name, 0), **row} for name, row in rows.items()]
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}
+               for name, row in rows.items()]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")

@@ -8,10 +8,14 @@ Port of ``repro/core/rcca.py``.  Entry points sharing one ``finish``
   every data pass is a fold over row chunks, shells over
   :class:`repro_torch.exec.PassEngine` (Local topology).
 
-Ω is passed in (``Qa0``, ``Qb0``): jax's and torch's generators cannot
-give the same numbers, so the tests hand both packages one Ω.
-:func:`draw_omega` draws Ω on the device from a seeded
-``torch.Generator`` for runs that need no reference.
+Ω comes one of two ways.  It is passed in (``Qa0``, ``Qb0``): jax's and
+torch's generators cannot give the same numbers, so the tests hand both
+packages one Ω.  Or it is made from an integer ``seed`` under one of
+:data:`OMEGA_MODES`: ``"materialized"`` draws it with
+:func:`draw_omega` (a seeded ``torch.Generator``); the seeded modes make
+the reference's own counter-based Ω (``kernels/rand.py``), the same
+numbers for the same seed in both packages, and ``"seeded"`` never
+holds it on the device during pass 0.
 
 Mean-centering is the paper's §3 rank-one update: column sums are
 accumulated alongside each pass and products are corrected as
@@ -28,6 +32,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..exec.accumulate import MERGE_GROUP_CHUNKS, merge_stats
 from ..kernels import ops as kops
+from ..kernels import rand as krand
 from ..kernels import ref as kref
 from .linalg import orth, sym, topk_svd, tri_solve_right
 
@@ -195,6 +200,28 @@ def merge_final_stats(x: FinalStats, y: FinalStats) -> FinalStats:
     return merge_stats(x, y)
 
 
+def seeded_update_fn(kind: str, kt: int):
+    """The per-chunk update of a seeded-Ω pass (kernels engine): the Qa/Qb
+    slots carry the per-view seeds (two uint32 words each) instead of
+    (d, k̃) tensors — the arity of :func:`update_fn`'s result, so the fold
+    is unchanged — and Ω is made on the card slab by slab inside the
+    seeded stage.  Bitwise the materialized update fed
+    ``rand.dense_omega(seed, d, kt)``."""
+    if kind == "power":
+        def upd(s: PowerStats, a, b, seed_a, seed_b) -> PowerStats:
+            Ya, Yb = kops.power_pass_chunk_seeded(a, b, seed_a, seed_b, kt=kt,
+                                                  out=(s.Ya, s.Yb))
+            return PowerStats(Ya=Ya, Yb=Yb, **_row_sums(s, a, b))
+        return upd
+    if kind == "final":
+        def upd(s: FinalStats, a, b, seed_a, seed_b) -> FinalStats:
+            dCa, dCb, dF = kops.final_pass_chunk_seeded(a, b, seed_a, seed_b, kt=kt)
+            return FinalStats(Ca=s.Ca + dCa, Cb=s.Cb + dCb, F=s.F + dF,
+                              **_row_sums(s, a, b))
+        return upd
+    raise ValueError(f"unknown pass kind {kind!r}")
+
+
 def update_fn(kind: str, engine: str):
     """The per-chunk update for one pass flavor."""
     kernels = resolve_engine(engine) == "kernels"
@@ -264,6 +291,41 @@ def draw_omega(seed: int, da: int, db: int, cfg: RCCAConfig, *,
     Qa = torch.randn((da, cfg.sketch), generator=g, dtype=f32, device=dev)
     Qb = torch.randn((db, cfg.sketch), generator=g, dtype=f32, device=dev)
     return Qa.to(cfg.dtype), Qb.to(cfg.dtype)
+
+
+#: Ω's provenance, as ``repro/core/rcca.py`` ``OMEGA_MODES``:
+#: - ``"materialized"`` — :func:`draw_omega`, the array threaded everywhere;
+#: - ``"seeded"`` — Ω a pure function of per-view seeds
+#:   (:mod:`repro_torch.kernels.rand`); under the kernels engine pass 0
+#:   makes it slab by slab inside the seeded stage and never holds the
+#:   (d, k̃) array;
+#: - ``"seeded-materialized"`` — the same Ω made up front and run through
+#:   the materialized update: the bitwise oracle of ``"seeded"``.
+OMEGA_MODES = ("materialized", "seeded", "seeded-materialized")
+
+
+def resolve_omega(omega: str) -> str:
+    if omega not in OMEGA_MODES:
+        raise ValueError(f"unknown omega {omega!r}; expected one of {OMEGA_MODES}")
+    return omega
+
+
+def omega_seeds(seed: int):
+    """Per-view Ω seeds of an integer seed, view a first: the bits the
+    reference derives from ``jax.random.PRNGKey(seed)``."""
+    return krand.omega_seeds(seed)
+
+
+def init_Q(seed: int, da: int, db: int, cfg: RCCAConfig, omega: str = "materialized", *,
+           device=DEFAULT_DEVICE):
+    """Lines 1-2: the sketch bases for an integer seed, made in f32 and
+    cast once to ``cfg.dtype``.  The seeded modes materialize the
+    counter-based Ω (``omega_fill`` on the card)."""
+    if resolve_omega(omega) == "materialized":
+        return draw_omega(seed, da, db, cfg, device=device)
+    seed_a, seed_b = omega_seeds(seed)
+    return (krand.dense_omega(seed_a, da, cfg.sketch, cfg.dtype, device=device),
+            krand.dense_omega(seed_b, db, cfg.sketch, cfg.dtype, device=device))
 
 
 def power_update_Q(stats: PowerStats, Qa, Qb, cfg: RCCAConfig):
@@ -353,20 +415,23 @@ def randomized_cca(A, B, cfg: RCCAConfig, Qa0, Qb0, *,
 # --------------------------------------------------------------------------
 
 
-def randomized_cca_streaming(A_chunks, B_chunks, cfg: RCCAConfig, Qa0, Qb0, *,
+def randomized_cca_streaming(A_chunks, B_chunks, cfg: RCCAConfig, Qa0=None, Qb0=None, *,
+                             seed: Optional[int] = None, omega: str = "materialized",
                              engine: str = DEFAULT_ENGINE,
                              merge_group: int = MERGE_GROUP_CHUNKS,
                              device=DEFAULT_DEVICE) -> RCCAResult:
     """Algorithm 1 where every data pass folds the row chunks of
-    ``A_chunks`` (nc, c, da) / ``B_chunks`` (nc, c, db)."""
+    ``A_chunks`` (nc, c, da) / ``B_chunks`` (nc, c, db), from Ω =
+    (Qa0, Qb0) or from ``seed`` under ``omega``."""
     from ..exec.engine import PassEngine, StackedChunks
 
-    eng = PassEngine(cfg, engine=engine, merge_group=merge_group, device=device)
-    return eng.run(StackedChunks(A_chunks, B_chunks), Qa0, Qb0)
+    eng = PassEngine(cfg, engine=engine, merge_group=merge_group, device=device, omega=omega)
+    return eng.run(StackedChunks(A_chunks, B_chunks), Qa0, Qb0, seed=seed)
 
 
 def randomized_cca_iterator(source_factory, da: int, db: int, cfg: RCCAConfig,
-                            Qa0, Qb0, *, engine: str = DEFAULT_ENGINE,
+                            Qa0=None, Qb0=None, *, seed: Optional[int] = None,
+                            omega: str = "materialized", engine: str = DEFAULT_ENGINE,
                             merge_group: int = MERGE_GROUP_CHUNKS,
                             n_chunks: Optional[int] = None,
                             on_pass_complete=None,
@@ -375,7 +440,7 @@ def randomized_cca_iterator(source_factory, da: int, db: int, cfg: RCCAConfig,
     once per pass.  A shell over :meth:`PassEngine.run_stream`."""
     from ..exec.engine import PassEngine
 
-    eng = PassEngine(cfg, engine=engine, merge_group=merge_group, device=device)
-    return eng.run_stream(source_factory, da, db, Qa0, Qb0, n_chunks=n_chunks,
+    eng = PassEngine(cfg, engine=engine, merge_group=merge_group, device=device, omega=omega)
+    return eng.run_stream(source_factory, da, db, Qa0, Qb0, seed=seed, n_chunks=n_chunks,
                           on_pass_complete=on_pass_complete)
 

@@ -76,16 +76,64 @@ class PassEngine:
     kernels; their plain versions for CPU tensors) or ``"torch"`` (the
     plain oracle).  Chunks from the source are taken in ``cfg.dtype`` on
     ``device`` (a tensor already there in that dtype is used as it is).
+
+    ``omega`` is Ω's provenance (``repro_torch.core.rcca.OMEGA_MODES``)
+    when a run is given a seed.  With ``"seeded"`` and the kernels
+    engine, pass 0's Qa/Qb slots carry the per-view seeds and the seeded
+    update makes Ω slab by slab on the card: no (d, k̃) Ω exists during
+    the pass.  The torch engine materializes the same Ω from the seeds,
+    and ``"seeded-materialized"`` does so for every engine — the bitwise
+    oracle of the seeded path.
     """
 
     def __init__(self, cfg, *, engine: Optional[str] = None,
-                 merge_group: int = MERGE_GROUP_CHUNKS, device=DEFAULT_DEVICE):
-        from ..core.rcca import DEFAULT_ENGINE, resolve_engine
+                 merge_group: int = MERGE_GROUP_CHUNKS, device=DEFAULT_DEVICE,
+                 omega: str = "materialized"):
+        from ..core.rcca import DEFAULT_ENGINE, resolve_engine, resolve_omega
 
         self.cfg = cfg
         self.engine = resolve_engine(DEFAULT_ENGINE if engine is None else engine)
         self.merge_group = int(merge_group)
         self.device = resolve_device(device)
+        self.omega = resolve_omega(omega)
+        if self.seeds_in_slots and cfg.dtype != torch.float32:
+            raise ValueError("the seeded kernels make Ω in float32; "
+                             f"got cfg.dtype={cfg.dtype}")
+
+    @property
+    def seeds_in_slots(self) -> bool:
+        """True when pass 0's Qa/Qb slots carry seeds, not tensors."""
+        return self.omega == "seeded" and self.engine == "kernels"
+
+    def _init_payload(self, Qa, Qb, seed: Optional[int], da: int, db: int):
+        """Pass 0's Qa/Qb: the given Ω, the per-view seeds for the seeded
+        kernels, or Ω made from ``seed`` under the engine's omega mode."""
+        from ..core.rcca import init_Q, omega_seeds
+
+        if Qa is not None or Qb is not None:
+            if seed is not None or self.omega != "materialized":
+                raise ValueError("an explicit Ω (Qa, Qb) takes omega='materialized' "
+                                 "and no seed")
+            return self._on_device(Qa), self._on_device(Qb)
+        if seed is None:
+            raise ValueError("pass Ω (Qa, Qb) or an integer seed")
+        if self.seeds_in_slots:
+            return omega_seeds(seed)
+        return init_Q(seed, da, db, self.cfg, omega=self.omega, device=self.device)
+
+    def _boundary_Q(self, Qa, Qb, pass_idx: int, da: int, db: int):
+        """Ω as tensors at a pass boundary where the slots carry seeds and
+        what follows needs the arrays (the centering correction, or the
+        q = 0 finalize): one ``omega_fill`` per view.  Ya is a (d, k̃)
+        tensor at every boundary already, so this stays in the memory
+        class of the stats."""
+        from ..kernels import rand as krand
+
+        if not self.seeds_in_slots or pass_idx != 0:
+            return Qa, Qb
+        kt, dt = self.cfg.sketch, self.cfg.dtype
+        return (krand.dense_omega(Qa, da, kt, dt, device=self.device),
+                krand.dense_omega(Qb, db, kt, dt, device=self.device))
 
     def _on_device(self, x) -> torch.Tensor:
         """``x`` in ``cfg.dtype`` on the engine's device, row-major (the
@@ -105,32 +153,41 @@ class PassEngine:
             del pair
             chunk_idx += 1
 
-    def run_stream(self, source_factory, da: int, db: int, Qa, Qb, *,
-                   n_chunks: Optional[int] = None, on_pass_complete=None):
+    def run_stream(self, source_factory, da: int, db: int, Qa=None, Qb=None, *,
+                   seed: Optional[int] = None, n_chunks: Optional[int] = None,
+                   on_pass_complete=None):
         """All q+1 passes over ``source_factory()`` (called once per pass,
-        yielding (a, b) chunks) from Ω = (Qa, Qb) → ``RCCAResult``.
+        yielding (a, b) chunks) → ``RCCAResult``, from Ω = (Qa, Qb) or
+        from ``seed`` under the engine's omega mode.
 
         ``on_pass_complete(pass_idx, kind, acc, Qa, Qb)`` fires once per
-        pass after its fold, with the accumulator and the bases the pass
-        consumed.
+        pass after its fold, with the accumulator and the Qa/Qb payload
+        the pass consumed (the seeds on a seeded pass 0).
         """
-        from ..core.rcca import finalize_result, power_update_Q, stats_init_fn, update_fn
+        from ..core.rcca import (finalize_result, power_update_Q, seeded_update_fn,
+                                 stats_init_fn, update_fn)
 
         cfg = self.cfg
-        Qa, Qb = self._on_device(Qa), self._on_device(Qb)
+        Qa, Qb = self._init_payload(Qa, Qb, seed, da, db)
         for pass_idx, kind in pass_schedule(cfg.q):
             acc = SegmentedAccumulator(
                 stats_init_fn(kind, da, db, cfg.sketch, self.device), n_chunks,
                 self.merge_group)
-            run_fold(self._indexed_on_device(source_factory()), update_fn(kind, self.engine),
-                     acc, Qa, Qb)
+            if self.seeds_in_slots and pass_idx == 0:
+                fn = seeded_update_fn(kind, cfg.sketch)
+            else:
+                fn = update_fn(kind, self.engine)
+            run_fold(self._indexed_on_device(source_factory()), fn, acc, Qa, Qb)
             if on_pass_complete is not None:
                 on_pass_complete(pass_idx, kind, acc, Qa, Qb)
             if kind == "power":
+                if cfg.center:  # the μ corrections need Ω itself
+                    Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)
                 Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
+        Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
         return finalize_result(acc.result(), Qa, Qb, cfg, da, db)
 
-    def run(self, access, Qa, Qb, **kwargs):
+    def run(self, access, Qa=None, Qb=None, **kwargs):
         """All passes over a random-access chunk source (``StackedChunks``)."""
         return self.run_stream(access.iter_chunks, access.da, access.db, Qa, Qb,
                                n_chunks=access.n_chunks, **kwargs)

@@ -1,16 +1,17 @@
 """Build, load and launch the port's CUDA kernels.
 
-The source ``csrc/gemm_f32.cu`` is compiled at first use with ``nvcc``
-into a shared library with a plain C interface, loaded with ``ctypes``:
+The source ``csrc/gemm_f32.cu`` (which includes ``csrc/rand.cuh``) is
+compiled at first use with one ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/gemm_f32-<hash>.so csrc/gemm_f32.cu
 
 The library lands in ``build/repro_torch_kernels/`` at the root of the
-checkout (git ignores ``build/``), named by a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is.  Nothing here runs at import: the CPU tests import every module
-of the port.
+checkout (git ignores ``build/``), named by a hash of every source it
+compiles and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing here runs at import: the CPU
+tests import every module of the port.
 
 Every launch goes through :func:`launch`, which raises on a non-zero
 ``cudaGetLastError()`` and adds one to that entry point's count in
@@ -30,15 +31,21 @@ from collections import Counter
 from pathlib import Path
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_f32.cu"
+#: Everything the one nvcc compiles: the source and the headers it includes.
+SOURCES = (SOURCE, SOURCE.parent / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_ptr, _i64, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ptr, _i64, _int, _u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
 #: C signatures of the library's entry points.
 SIGNATURES = {
     "gemm_nn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
     "gemm_tn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+    # x, seed words, p, slab scratch, slab rows, M, N, K, stream
+    "proj_stage_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr],
+    # out, rows, cols, r0, d, kt, seed words, stream
+    "omega_fill_f32": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
 }
 
 #: Launches per Python entry point since the last :func:`reset_launches`.
@@ -66,7 +73,7 @@ def _nvcc() -> str:
 
 
 def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
 

@@ -3,9 +3,9 @@
 ``matmul_tn`` (O = Xᵀ·Y) is the port of ``repro/kernels/matmul.py``
 ``_mm_tn_kernel`` as ``pallas_matmul(transpose_lhs=True)`` launches it;
 on the main path it computes the final pass's cross term F = PaᵀPb.
-:func:`gemm_nn` and :func:`gemm_tn` are the checked launchers every
-entry point of the package goes through (kernel source:
-``csrc/gemm_f32.cu``).
+:func:`gemm_nn`, :func:`gemm_nn_seeded` and :func:`gemm_tn` are the
+checked launchers every GEMM entry point of the package goes through
+(kernel source: ``csrc/gemm_f32.cu``).
 
 A wrapper takes its plain version (:mod:`.ref`) only when its tensors
 lie on the CPU.  For CUDA tensors it launches the kernel or raises.
@@ -19,6 +19,10 @@ from . import build, ref
 
 _MAX_GRID_Y = 65535  # column tiles ride gridDim.y
 _TILE = 128
+#: Ω rows per slab of the seeded stage: 34 MB at k̃ = 2060, inside the
+#: H100's 50 MB L2.  A multiple of the kernel's contraction step (16), so
+#: slab edges keep each element's FMA chain (the C side checks).
+SEEDED_SLAB = 4096
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -64,6 +68,23 @@ def gemm_nn(entry: str, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch(entry, "gemm_nn_f32", x.data_ptr(), q.data_ptr(),
                  out.data_ptr(), M, N, K, _stream(x))
+    return out
+
+
+def gemm_nn_seeded(entry: str, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
+    """P = x·Ω(seed) on the card: x (M, K) → (M, kt) f32, Ω made in
+    K-slabs of :data:`SEEDED_SLAB` rows into a scratch allocated here
+    (one C call, 2·⌈K / SEEDED_SLAB⌉ CUDA launches)."""
+    _check(entry, x)
+    M, K = x.shape
+    if K == 0:
+        raise ValueError(f"{entry}: empty contraction")
+    _grid_ok(entry, M, kt)
+    out = torch.empty((M, kt), dtype=torch.float32, device=x.device)
+    slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=torch.float32, device=x.device)
+    build.launch(entry, "proj_stage_seeded_f32", x.data_ptr(), seed[0] & 0xFFFFFFFF,
+                 seed[1] & 0xFFFFFFFF, out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K,
+                 _stream(x))
     return out
 
 

@@ -5,7 +5,8 @@ Port of the staged schedule of ``repro/kernels/projgram.py``:
 - :func:`gram_sweep` — C = Pᵀ·P in f32, the port of ``_gram_sweep_kernel``
   (the TN kernel with both operands P);
 - :func:`projgram` — stage then Gram, returning (P, C), as
-  ``_staged_gram_call``; P is kept because the cross term F needs it.
+  ``_staged_gram_call``; P is kept because the cross term F needs it;
+- :func:`projgram_seeded` — the same with the seeded stage.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from . import ref
 from .matmul import gemm_tn, on_cpu
-from .powerpass import proj_stage
+from .powerpass import proj_stage, proj_stage_seeded
 
 
 def gram_sweep(p: torch.Tensor) -> torch.Tensor:
@@ -27,4 +28,10 @@ def gram_sweep(p: torch.Tensor) -> torch.Tensor:
 def projgram(x: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(P, C) = (x·q, (x·q)ᵀ(x·q)) in f32 (2 launches)."""
     p = proj_stage(x, q)
+    return p, gram_sweep(p)
+
+
+def projgram_seeded(x: torch.Tensor, seed, kt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P, C) with P = x·Ω(seed) (2 launches)."""
+    p = proj_stage_seeded(x, seed, kt)
     return p, gram_sweep(p)

@@ -10,12 +10,21 @@ from __future__ import annotations
 
 import torch
 
+from .rand import omega_tile
+
 f32 = torch.float32
 
 
 def proj_stage_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """P = x · q in f32 (``_proj_stage_kernel``)."""
     return x.to(f32) @ q.to(f32)
+
+
+def proj_stage_seeded_ref(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
+    """P = x · Ω(seed) in f32 (``_proj_stage_seeded_kernel``), Ω made by
+    the plain generator (``rand.omega_tile``, the plain ``omega_fill``)
+    on x's device."""
+    return proj_stage_ref(x, omega_tile(seed, x.shape[1], kt, device=x.device))
 
 
 def powerpass_sweep_ref(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

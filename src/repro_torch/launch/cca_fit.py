@@ -2,21 +2,27 @@
 planted Europarl stand-in.
 
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --engine torch
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --omega seeded
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --n-chunks 4  # Europarl width, card
 
 Port of ``repro/launch/cca_fit.py --mode stream``.  Rows are made on the
 device chunk by chunk (:class:`~repro_torch.data.DevicePlantedChunks`)
 and streamed through Algorithm 1's q+1 data passes
-(:func:`~repro_torch.core.rcca.randomized_cca_iterator`); Ω is drawn on
-the device from ``--seed``.  ``--n-chunks`` cuts n to that many chunks.
-Prints the wall time and kernel launches of every pass, Σρ and the
-top-5 ρ; at smoke width also the feasibility residuals and the gap to
-the exact dense CCA.
+(:func:`~repro_torch.core.rcca.randomized_cca_iterator`); Ω comes from
+``--seed`` under ``--omega`` (``materialized``: drawn on the device;
+``seeded``: the counter-based Ω, made slab by slab inside pass 0's
+kernels; ``seeded-materialized``: the same Ω made up front).
+``--n-chunks`` cuts n to that many chunks, ``--q`` overrides the number
+of power passes.  Prints the wall time and kernel launches of every
+pass, Σρ and the top-5 ρ; at smoke width also the feasibility residuals
+and the gap to the exact dense CCA.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import resource
 import time
 from typing import NamedTuple
 
@@ -24,7 +30,7 @@ import torch
 
 from ..configs.europarl_cca import CCAWorkload, config, smoke_config
 from ..core.exact import exact_cca, feasibility_errors
-from ..core.rcca import DEFAULT_ENGINE, RCCAResult, draw_omega, randomized_cca_iterator
+from ..core.rcca import DEFAULT_ENGINE, OMEGA_MODES, RCCAResult, randomized_cca_iterator
 from ..data.synthetic import DevicePlantedChunks
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import ops as kops
@@ -37,6 +43,8 @@ class FitReport(NamedTuple):
     pass_seconds: list  # wall time of each pass's fold (a power pass's orth
                         # falls in the next pass's interval)
     pass_launches: list  # kernel launches of each pass, by entry point
+    pass_groups: list  # (merge groups closed, seconds the fold spent in the
+                       # merge stack) of each pass
 
 
 def _sync(dev: torch.device) -> None:
@@ -45,15 +53,16 @@ def _sync(dev: torch.device) -> None:
 
 
 def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
-        seed: int = 0, n_chunks: int | None = None) -> FitReport:
-    """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks."""
+        seed: int = 0, n_chunks: int | None = None, omega: str = "materialized") -> FitReport:
+    """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks,
+    Ω from ``seed`` under ``omega``.  Pass 0's interval includes making Ω
+    (the seeded-materialized mode's two ``omega_fill`` launches)."""
     dev = resolve_device(device)
     cfg = wl.rcca
     n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
     data = DevicePlantedChunks(n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
                                chunk=wl.chunk, device=dev)
-    Qa, Qb = draw_omega(seed, wl.da, wl.db, cfg, device=dev)
-    pass_seconds, pass_launches = [], []
+    pass_seconds, pass_launches, pass_groups = [], [], []
     _sync(dev)
     marks = {"t": time.perf_counter(), "launches": kops.launch_counts()}
 
@@ -63,13 +72,14 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         pass_seconds.append(now - marks["t"])
         pass_launches.append({k: v - marks["launches"].get(k, 0) for k, v in counts.items()
                               if v != marks["launches"].get(k, 0)})
+        pass_groups.append((acc.groups_done, acc.host_seconds))
         marks.update(t=now, launches=counts)
 
-    res = randomized_cca_iterator(lambda: iter(data), wl.da, wl.db, cfg, Qa, Qb,
-                                  engine=engine, n_chunks=data.n_chunks,
+    res = randomized_cca_iterator(lambda: iter(data), wl.da, wl.db, cfg, seed=seed,
+                                  omega=omega, engine=engine, n_chunks=data.n_chunks,
                                   on_pass_complete=on_pass_complete, device=dev)
     _sync(dev)
-    return FitReport(res, n, data.n_chunks, pass_seconds, pass_launches)
+    return FitReport(res, n, data.n_chunks, pass_seconds, pass_launches, pass_groups)
 
 
 def evaluate(rep: FitReport, wl: CCAWorkload, *, seed: int = 0,
@@ -97,24 +107,39 @@ def main(argv=None) -> FitReport:
                          "plain PyTorch oracle path")
     ap.add_argument("--n-chunks", type=int, default=None,
                     help="cut n to this many row chunks")
+    ap.add_argument("--omega", default="materialized", choices=list(OMEGA_MODES),
+                    help="Ω provenance: drawn and held (materialized), made from the "
+                         "seed inside pass 0's kernels (seeded), or the same seeded Ω "
+                         "made up front (seeded-materialized, the bitwise oracle)")
+    ap.add_argument("--q", type=int, default=None,
+                    help="power passes (default: the configuration's)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     wl = smoke_config() if args.smoke else config()
+    if args.q is not None:
+        wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, q=args.q))
     cfg = wl.rcca
     t0 = time.perf_counter()
     rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
-              n_chunks=args.n_chunks)
+              n_chunks=args.n_chunks, omega=args.omega)
     dt = time.perf_counter() - t0
-    print(f"[cca] stream mode, engine={args.engine}, device={args.device}, "
-          f"n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}) da={wl.da} db={wl.db} "
-          f"k={cfg.k} p={cfg.p} q={cfg.q}")
-    for i, (sec, launches) in enumerate(zip(rep.pass_seconds, rep.pass_launches)):
+    print(f"[cca] stream mode, engine={args.engine}, omega={args.omega}, "
+          f"device={args.device}, n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}) "
+          f"da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}")
+    for i, (sec, launches, (groups, host_s)) in enumerate(
+            zip(rep.pass_seconds, rep.pass_launches, rep.pass_groups)):
         kind = "final" if i == cfg.q else "power"
-        print(f"[cca] pass {i} ({kind}): {sec:.3f} s, kernel launches {launches}")
+        print(f"[cca] pass {i} ({kind}): {sec:.3f} s, kernel launches {launches}; "
+              f"merge stack: {groups} groups closed to the host, {host_s:.3f} s of the "
+              "pass spent there")
     rho = rep.result.rho.double().cpu()
     print(f"[cca] done in {dt:.1f}s; sum rho = {float(rho.sum()):.4f}; "
           f"top-5 rho = {[round(float(r), 6) for r in rho[:5]]}")
+    if torch.device(args.device).type == "cuda":
+        rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        print(f"[cca] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"peak host RSS {rss_kib * 1024 / 1e9:.2f} GB (closed merge groups live there)")
 
     if args.smoke:
         ev = evaluate(rep, wl, seed=args.seed, device=args.device)
