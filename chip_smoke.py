@@ -24,7 +24,17 @@ Phases, each of which fails the run by raising:
    shape against its plain version (4·√K·u) and bitwise against
    ``proj_stage(x, omega_fill(seed))``, with times; the library
    yardstick is ``torch.matmul(x, Ω)`` with Ω made beforehand;
-6. fit — the smoke width against the exact dense CCA, then the main
+6. recompute — the four fused recompute kernels (``projgram``,
+   ``projgram_seeded``, ``power_project_accumulate`` with and without
+   ``out=``, ``power_project_accumulate_seeded``) at the p = 910 shapes
+   (8192 × 2^19 → 970; the power pair's A 8192 × 1024), at a ragged shape
+   (333 × 9001 → 67) and at one of several buckets: each against its
+   plain version (4·√K·u of the largest magnitude) and BITWISE against
+   its staged pair (and, seeded, against the materialized recompute on
+   ``omega_fill(seed)``), with times beside the staged pair's;
+7. fit — the smoke width on the card (kernels engine, torch engine,
+   ``--omega seeded``; both passes resolve to recompute, so the fused
+   power-pass kernels run inside a fit), then the main
    path: ``repro_torch.launch.cca_fit`` at Europarl width (da = db =
    2^19, k = 60, p = 2000, q = 1, ν = 0.01, chunk 8192; n cut to
    16 chunks = 131,072 rows for the time limit, two merge groups, so the
@@ -34,7 +44,15 @@ Phases, each of which fails the run by raising:
    stack reached while it kept closed groups on the card), then
    ``engine="torch"`` on the same data and Ω (their ρ must agree), then
    ``--omega seeded`` and ``--omega seeded-materialized``, whose ρ and
-   X must be bitwise equal, at 4 / 5 launches per power / final chunk.
+   X must be bitwise equal, at 4 / 5 launches per power / final chunk
+   (both passes staged); then the paper's other oversampling, ``--p 910``
+   (k̃ = 970), where the final pass recomputes: kernels engine (2
+   ``projgram`` + 1 ``matmul_tn`` per final chunk, no ``gram_sweep``)
+   against the torch engine, and ``--q 0 --omega seeded`` bitwise
+   ``--omega seeded-materialized``.
+
+Every fit resets the launch counters just before it and reads them just
+after; the total wall time is printed at the end.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON, and before that the card's name and power limit.
@@ -67,10 +85,18 @@ OMEGA_ULP_BOUND = 8  # CUDA logf 1 ulp, cosf 2 ulp, one product rounding
 # the 16-chunk fit's peak while the merge stack kept closed groups on the card
 STACK_ON_CARD_PEAK_GB = 69.47
 
+# the p = 910 fit's sketch (k = 60) and the power pair's narrow A (one ΔY bucket)
+KT_910 = 970
+DA_NARROW = 1024
+
 GEMM = "src/repro_torch/kernels/csrc/gemm_f32.cu"
+RECOMPUTE = "src/repro_torch/kernels/csrc/recompute_f32.cu"
+FUSED = ("projgram", "projgram_seeded", "power_project_accumulate",
+         "power_project_accumulate_seeded")
 SOURCES = {name: GEMM for name in ("proj_stage", "powerpass_sweep", "gram_sweep",
                                    "matmul_tn", "proj_stage_seeded")}
 SOURCES["omega_fill"] = "src/repro_torch/kernels/csrc/rand.cuh"
+SOURCES.update({name: RECOMPUTE for name in FUSED})
 REPLACES = {
     "proj_stage": "src/repro/kernels/powerpass.py:406",
     "powerpass_sweep": "src/repro/kernels/powerpass.py:445",
@@ -78,6 +104,10 @@ REPLACES = {
     "matmul_tn": "src/repro/kernels/matmul.py:54",
     "omega_fill": "src/repro/kernels/rand.py:85",
     "proj_stage_seeded": "src/repro/kernels/powerpass.py:423",
+    "projgram": "src/repro/kernels/projgram.py:74",
+    "projgram_seeded": "src/repro/kernels/projgram.py:227",
+    "power_project_accumulate": "src/repro/kernels/powerpass.py:102",
+    "power_project_accumulate_seeded": "src/repro/kernels/powerpass.py:261",
 }
 
 
@@ -306,6 +336,167 @@ def phase_seeded(dev, b) -> dict:
     return row
 
 
+def check_fused(name, rec, staged, plain, Ks) -> float:
+    """A recompute kernel (``rec`` returns a tuple of outputs) against its
+    plain version per output (4·√K·u of the plain output's largest
+    magnitude, K per output in ``Ks``: d for P, d + n for what P feeds),
+    against its staged pair BITWISE, and two launches bitwise; returns
+    the largest abs error."""
+    import torch
+
+    out, again, pair, want = rec(), rec(), staged(), plain()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (o, g, s, w, K) in enumerate(zip(out, again, pair, want, Ks)):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}[{i}]: non-finite output")
+        err = float((o - w).abs().max())
+        scale = float(w.abs().max())
+        tol = 4 * math.sqrt(K) * U * scale
+        same, repeat = torch.equal(o, s), torch.equal(o, g)
+        print(f"[smoke] {name}[{i}] {tuple(o.shape)} K={K}: max_abs_err={err:.3e} "
+              f"max_rel_err={err / scale:.3e} (tol {tol / scale:.3e}) "
+              f"staged_bitwise={same} repeat_bitwise={repeat}", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"{name}: recompute is not its staged pair bitwise")
+        if not repeat:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        worst = max(worst, err)
+    return worst
+
+
+def fused_cases(x, q, a, seed):
+    """Per fused entry point on x (n, d), q (d, k̃) and a (n, da) — the
+    power pair's A, with B = x: (recompute call, staged call, plain call,
+    library call or None, the K of each output, FLOPs, bytes, int32 ops),
+    each call returning a tuple.  The Gram's FLOPs and bytes count its
+    k̃(k̃+1)/2 distinct entries, as ``gram_sweep``'s bound does."""
+    import torch
+
+    from repro_torch.kernels import (power_project_accumulate, power_project_accumulate_seeded,
+                                     projgram, projgram_seeded, rand, ref)
+
+    n, d = x.shape
+    kt, da = q.shape[1], a.shape[1]
+    gram_flops, gram_words = n * kt * (kt + 1), kt * (kt + 1) // 2
+    proj_flops = 2 * n * d * kt
+    power_flops = proj_flops + 2 * n * da * kt
+    omega = rand.omega_fill(seed, d, kt, device=x.device)
+    omega_ops = OMEGA_INT_OPS * d * kt
+    return {
+        "projgram": (lambda: projgram(x, q, schedule="recompute"),
+                     lambda: projgram(x, q, schedule="staged"),
+                     lambda: ref.projgram_ref(x, q), None, (d, d + n),
+                     proj_flops + gram_flops, 4 * (n * d + d * kt + n * kt + gram_words), 0),
+        "projgram_seeded": (lambda: projgram_seeded(x, seed, kt, schedule="recompute"),
+                            lambda: projgram_seeded(x, seed, kt, schedule="staged"),
+                            lambda: ref.projgram_seeded_ref(x, seed, kt), None, (d, d + n),
+                            proj_flops + gram_flops, 4 * (n * d + n * kt + gram_words),
+                            omega_ops),
+        "power_project_accumulate": (
+            lambda: (power_project_accumulate(a, x, q, schedule="recompute"),),
+            lambda: (power_project_accumulate(a, x, q, schedule="staged"),),
+            lambda: (ref.power_project_accumulate_ref(a, x, q),),
+            lambda: torch.linalg.multi_dot([a.T, x, q]), (d + n,), power_flops,
+            4 * (n * d + d * kt + n * da + da * kt), 0),
+        "power_project_accumulate_seeded": (
+            lambda: (power_project_accumulate_seeded(a, x, seed, kt, schedule="recompute"),),
+            lambda: (power_project_accumulate_seeded(a, x, seed, kt, schedule="staged"),),
+            lambda: (ref.power_project_accumulate_seeded_ref(a, x, seed, kt),),
+            lambda: torch.linalg.multi_dot([a.T, x, omega]), (d + n,), power_flops,
+            4 * (n * d + n * da + da * kt), omega_ops),
+    }, omega
+
+
+def fused_extras(x, q, a, seed, omega) -> None:
+    """The contracts beside the staged pair: seeded ≡ the materialized
+    recompute on ``omega_fill(seed)``, and ``out=`` ≡ acc + ΔY, both
+    bitwise, both schedules."""
+    import torch
+
+    from repro_torch.kernels import (power_project_accumulate, power_project_accumulate_seeded,
+                                     projgram, projgram_seeded)
+
+    kt = q.shape[1]
+    seeded = projgram_seeded(x, seed, kt, schedule="recompute")
+    mat = projgram(x, omega, schedule="recompute")
+    ok = [torch.equal(s, m) for s, m in zip(seeded, mat)]
+    dy_s = power_project_accumulate_seeded(a, x, seed, kt, schedule="recompute")
+    dy = power_project_accumulate(a, x, omega, schedule="recompute")
+    ok.append(torch.equal(dy_s, dy))
+    g = torch.Generator(device=x.device)
+    g.manual_seed(SEED + 13)
+    acc0 = torch.randn((a.shape[1], kt), generator=g, device=x.device)
+    for fn, op in [(power_project_accumulate, q), (power_project_accumulate_seeded, seed)]:
+        args = (a, x, op) if fn is power_project_accumulate else (a, x, op, kt)
+        rec = fn(*args, schedule="recompute", out=acc0.clone())
+        staged = fn(*args, schedule="staged", out=acc0.clone())
+        ok += [torch.equal(rec, staged), torch.equal(rec, acc0 + fn(*args, schedule="recompute"))]
+    print(f"[smoke] fused at {tuple(x.shape)} → {kt}, A {tuple(a.shape)}: seeded == "
+          f"materialized recompute on omega_fill (P, C, ΔY) {ok[:3]}; out=acc: recompute == "
+          f"staged and == acc + ΔY (materialized, seeded) {ok[3:]}", flush=True)
+    if not all(ok):
+        raise AssertionError("a fused kernel broke a bitwise contract")
+
+
+def phase_recompute(dev, a, b) -> dict:
+    """The four fused recompute kernels at a ragged shape, at a shape of
+    several buckets, then at the p = 910 shapes with times."""
+    import torch
+
+    from repro_torch.kernels import choose_powerpass_schedule, plan, rand
+
+    seed = rand.omega_seeds(SEED)[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 17)
+    # (n, d, k̃, da): ragged; then 2 C buckets (k̃ = 1100) and 23 ΔY buckets
+    for n, d, kt, da in [(333, 9001, 67, 517), (333, 9001, 1100, 20000)]:
+        x = torch.randn((n, d), generator=g, device=dev)
+        q = torch.randn((d, kt), generator=g, device=dev)
+        xa = torch.randn((n, da), generator=g, device=dev)
+        print(f"[smoke] fused at {(n, d, kt, da)}: {len(plan.buckets(kt, kt))} C bucket(s), "
+              f"{len(plan.buckets(da, kt))} ΔY bucket(s)", flush=True)
+        cases, omega = fused_cases(x, q, xa, seed)
+        for name, (rec, staged, plain, _, Ks, *_) in cases.items():
+            check_fused(name, rec, staged, plain, Ks)
+        fused_extras(x, q, xa, seed, omega)
+        del x, q, xa, omega, cases
+
+    n, d = b.shape
+    q = torch.randn((d, KT_910), generator=g, device=dev)
+    a_narrow = a[:, :DA_NARROW].contiguous()
+    cases, omega = fused_cases(b, q, a_narrow, seed)
+    fused_extras(b, q, a_narrow, seed, omega)
+    rows = {}
+    for name, (rec, staged, plain, lib, Ks, flops, nbytes, int_ops) in cases.items():
+        err = check_fused(name, rec, staged, plain, Ks)
+        t = {"ms": time_ms(rec, 3), "staged_ms": time_ms(staged, 3),
+             "plain_ms": time_ms(plain, 3),
+             "library_ms": None if lib is None else time_ms(lib, 3)}
+        rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, int_ops), **t)
+        lib_txt = "none" if lib is None else f"{t['library_ms']:.3f} ms"
+        print(f"[smoke] {name} at {(n, d)} → {KT_910}: kernel {t['ms']:.3f} ms, staged pair "
+              f"{t['staged_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library {lib_txt}, "
+              f"bound {rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}); "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    # the p = 910 power pass at full width (da = 2^19): the rule stages it;
+    # a recompute would issue one launch per ΔY bucket, each the narrow
+    # pair's one-bucket launch timed above
+    from repro_torch.kernels import power_project_accumulate
+
+    n_buckets = len(plan.buckets(a.shape[1], KT_910))
+    staged_ms = time_ms(lambda: power_project_accumulate(a, b, q, schedule="staged"), 3)
+    print(f"[smoke] p=910 power pass per view and chunk, A {tuple(a.shape)}: staged "
+          f"{staged_ms:.3f} ms; recompute {n_buckets} launches ≈ "
+          f"{n_buckets * rows['power_project_accumulate']['ms'] / 1e3:.1f} s "
+          f"({n_buckets} × the one-bucket launch); rule: "
+          f"{choose_powerpass_schedule(*a.shape, b.shape[1], KT_910, accumulate=True)}",
+          flush=True)
+    return rows
+
+
 def run_fit(argv, label):
     """One main-path run of the launcher: counters zeroed just before,
     read just after; returns (report, launches, peak GB, wall s)."""
@@ -327,21 +518,69 @@ def run_fit(argv, label):
     return rep, launches, peak, wall
 
 
-def phase_fit(dev) -> dict:
-    """The smoke width, then the main path's four Europarl-width runs;
-    returns each kernel's launches in the run that drives it."""
+def fit_checks(rep, label, want_launches, want_schedules):
+    """A fit's launches and resolved schedules per pass, as predicted."""
+    if rep.pass_launches != want_launches:
+        raise AssertionError(f"{label}: launches per pass {rep.pass_launches}, "
+                             f"want {want_launches}")
+    if rep.pass_schedules != want_schedules:
+        raise AssertionError(f"{label}: schedules per pass {rep.pass_schedules}, "
+                             f"want {want_schedules}")
+
+
+def rho_ok(rho) -> bool:
+    """Finite and in [0, 1]: ρ ≤ 1 holds exactly for λ > 0; 1e-5 leaves
+    room for the f32 statistics only (f32 factorizations in finish
+    overshot by 2e-4)."""
     import torch
 
-    from repro_torch.configs.europarl_cca import config, smoke_config
+    return bool((torch.isfinite(rho) & (rho >= 0) & (rho <= 1 + 1e-5)).all())
+
+
+def phase_smoke_fits(dev) -> dict:
+    """The smoke width on the card, where both passes recompute: kernels
+    engine, torch engine, ``--omega seeded``, each against the exact
+    dense CCA; returns the fused power-pass kernels' launches."""
+    from repro_torch.configs.europarl_cca import smoke_config
     from repro_torch.launch import cca_fit
 
-    # smoke width on the card against the exact dense CCA
-    rep = cca_fit.main(["--smoke", "--device", dev.type, "--seed", str(SEED)])
-    ev = cca_fit.evaluate(rep, smoke_config(), seed=SEED, device=dev)
-    print(f"[smoke] smoke width: feasibility {ev['feasibility']}, "
-          f"exact-oracle gap {ev['gap']:.5f}", flush=True)
-    if max(ev["feasibility"].values()) > 1e-4 or not 0 <= ev["gap"] < 0.05:
-        raise AssertionError("smoke-width fit is infeasible or far from the exact CCA")
+    argv = ["--smoke", "--device", dev.type, "--seed", str(SEED)]
+    reps = {}
+    for label, extra in [("smoke, kernels engine", []), ("smoke, torch engine",
+                                                         ["--engine", "torch"]),
+                         ("smoke, omega=seeded", ["--omega", "seeded"])]:
+        rep, launches, _, _ = run_fit(argv + extra, label)
+        ev = cca_fit.evaluate(rep, smoke_config(), seed=SEED, device=dev)
+        print(f"[smoke] {label}: feasibility {ev['feasibility']}, "
+              f"exact-oracle gap {ev['gap']:.5f}", flush=True)
+        if max(ev["feasibility"].values()) > 1e-4 or not 0 <= ev["gap"] < 0.05:
+            raise AssertionError(f"{label}: infeasible or far from the exact CCA")
+        reps[label] = (rep, launches)
+    rep_k, launches_k = reps["smoke, kernels engine"]
+    rep_t, launches_t = reps["smoke, torch engine"]
+    rep_s, launches_s = reps["smoke, omega=seeded"]
+    nc = rep_k.n_chunks
+    final = {"projgram": 2 * nc, "matmul_tn": nc}  # 3 per chunk
+    fit_checks(rep_k, "smoke kernels", [{"power_project_accumulate": 2 * nc}, final],
+               ["recompute", "recompute"])
+    fit_checks(rep_s, "smoke seeded", [{"power_project_accumulate_seeded": 2 * nc}, final],
+               ["recompute", "recompute"])
+    fit_checks(rep_t, "smoke torch", [{}, {}], [None, None])
+    gap = float((rep_k.result.rho.double() - rep_t.result.rho.double()).abs().max())
+    print(f"[smoke] smoke width: max |rho_kernels - rho_torch| = {gap:.3e} (limit 1e-3)",
+          flush=True)
+    if not gap <= 1e-3 or not rho_ok(rep_k.result.rho) or not rho_ok(rep_s.result.rho):
+        raise AssertionError("smoke-width fits disagree or leave [0, 1]")
+    return {"power_project_accumulate": launches_k["power_project_accumulate"],
+            "power_project_accumulate_seeded": launches_s["power_project_accumulate_seeded"]}
+
+
+def phase_fit(dev) -> dict:
+    """The main path's four Europarl-width runs at p = 2000 (both passes
+    staged); returns each kernel's launches in the run that drives it."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
 
     wl = config()
     argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED)]
@@ -351,9 +590,7 @@ def phase_fit(dev) -> dict:
     nc = rep_k.n_chunks
     want_power = {"proj_stage": 2 * nc, "powerpass_sweep": 2 * nc}  # 4 per chunk
     want_final = {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}  # 5 per chunk
-    if rep_k.pass_launches != [want_power, want_final]:
-        raise AssertionError(f"launches per pass {rep_k.pass_launches}, "
-                             f"want {[want_power, want_final]}")
+    fit_checks(rep_k, "kernels engine", [want_power, want_final], ["staged", "staged"])
     if not peak_k < STACK_ON_CARD_PEAK_GB:
         raise AssertionError(f"peak memory {peak_k:.2f} GB: closed merge groups are not "
                              f"leaving the card ({STACK_ON_CARD_PEAK_GB} GB when they stay)")
@@ -372,9 +609,7 @@ def phase_fit(dev) -> dict:
           f"sum rho {float(rho_k.sum()):.6f} vs {float(rho_t.sum()):.6f}", flush=True)
     if not finite or Xa_shape != (wl.da, wl.rcca.k) or rho_k.shape != (wl.rcca.k,):
         raise AssertionError(f"bad fit output: finite={finite} Xa {Xa_shape}")
-    # ρ ≤ 1 holds exactly for λ > 0; 1e-5 leaves room for the f32
-    # statistics only (f32 factorizations in finish overshot by 2e-4)
-    if not bool(((rho_k >= 0) & (rho_k <= 1 + 1e-5)).all()):
+    if not rho_ok(rho_k):
         raise AssertionError("canonical correlations outside [0, 1]")
     if not gap <= 1e-3:
         raise AssertionError("kernels and torch engines disagree on rho")
@@ -382,18 +617,14 @@ def phase_fit(dev) -> dict:
     # the seeded path and its bitwise oracle
     rep_s, launches_s, peak_s, _ = run_fit(argv + ["--omega", "seeded"], "omega=seeded")
     want_seeded = {"proj_stage_seeded": 2 * nc, "powerpass_sweep": 2 * nc}  # 4 per chunk
-    if rep_s.pass_launches != [want_seeded, want_final]:
-        raise AssertionError(f"seeded launches per pass {rep_s.pass_launches}, "
-                             f"want {[want_seeded, want_final]}")
+    fit_checks(rep_s, "omega=seeded", [want_seeded, want_final], ["staged", "staged"])
     seeded = [t.cpu() for t in rep_s.result[:3]]
     del rep_s
     rep_m, launches_m, peak_m, _ = run_fit(argv + ["--omega", "seeded-materialized"],
                                            "omega=seeded-materialized")
     # Ω for both views up front, then 4 per power chunk
-    want_oracle = {"omega_fill": 2, **want_power}
-    if rep_m.pass_launches != [want_oracle, want_final]:
-        raise AssertionError(f"seeded-materialized launches per pass {rep_m.pass_launches}, "
-                             f"want {[want_oracle, want_final]}")
+    fit_checks(rep_m, "omega=seeded-materialized",
+               [{"omega_fill": 2, **want_power}, want_final], ["staged", "staged"])
     oracle = [t.cpu() for t in rep_m.result[:3]]
     del rep_m
     same = [torch.equal(x, y) for x, y in zip(seeded, oracle)]
@@ -406,12 +637,61 @@ def phase_fit(dev) -> dict:
           f"(closed groups kept on the card: {STACK_ON_CARD_PEAK_GB} GB)", flush=True)
     if not all(same):
         raise AssertionError("omega=seeded is not bitwise omega=seeded-materialized")
-    if not bool((torch.isfinite(rho_s) & (rho_s >= 0) & (rho_s <= 1 + 1e-5)).all()):
+    if not rho_ok(rho_s):
         raise AssertionError("seeded fit's canonical correlations are not in [0, 1]")
     if not peak_s < peak_k:
         raise AssertionError("the seeded fit held more device memory than the materialized one")
     return {**launches, "omega_fill": launches_m.get("omega_fill", 0),
             "proj_stage_seeded": launches_s.get("proj_stage_seeded", 0)}
+
+
+def phase_fit_910(dev) -> dict:
+    """The paper's p = 910 at Europarl width (k̃ = 970): the power pass
+    stays staged, the final pass recomputes; kernels engine against the
+    torch engine, then the q = 0 seeded fit bitwise its oracle.  Returns
+    the fused projgram kernels' launches."""
+    import torch
+
+    argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED),
+            "--p", "910"]
+    print("[smoke] p = 910: Europarl width, k̃ = 970, n cut as above", flush=True)
+    rep_k, launches_k, peak_k, _ = run_fit(argv, "p=910 kernels engine")
+    nc = rep_k.n_chunks
+    final = {"projgram": 2 * nc, "matmul_tn": nc}  # 3 per chunk, no gram_sweep
+    fit_checks(rep_k, "p=910 kernels", [{"proj_stage": 2 * nc, "powerpass_sweep": 2 * nc},
+                                        final], ["staged", "recompute"])
+    rho_k = rep_k.result.rho.double().cpu()
+    del rep_k
+    rep_t, launches_t, peak_t, _ = run_fit(argv + ["--engine", "torch"], "p=910 torch engine")
+    rho_t = rep_t.result.rho.double().cpu()
+    del rep_t
+    gap = float((rho_k - rho_t).abs().max())
+    print(f"[smoke] p=910: max |rho_kernels - rho_torch| = {gap:.3e} (limit 1e-3); sum rho "
+          f"{float(rho_k.sum()):.6f} vs {float(rho_t.sum()):.6f}; peak {peak_k:.2f} / "
+          f"{peak_t:.2f} GB", flush=True)
+    if launches_t or not gap <= 1e-3 or not rho_ok(rho_k):
+        raise AssertionError("p=910: the engines disagree, or rho leaves [0, 1]")
+
+    q0 = argv + ["--q", "0"]
+    rep_s, launches_s, peak_s, _ = run_fit(q0 + ["--omega", "seeded"], "p=910 q=0 seeded")
+    fit_checks(rep_s, "p=910 q=0 seeded", [{"projgram_seeded": 2 * nc, "matmul_tn": nc}],
+               ["recompute"])
+    seeded = [t.cpu() for t in rep_s.result[:3]]
+    del rep_s
+    rep_m, _, peak_m, _ = run_fit(q0 + ["--omega", "seeded-materialized"],
+                                  "p=910 q=0 seeded-materialized")
+    fit_checks(rep_m, "p=910 q=0 seeded-materialized", [{"omega_fill": 2, **final}],
+               ["recompute"])
+    oracle = [t.cpu() for t in rep_m.result[:3]]
+    del rep_m
+    same = [torch.equal(x, y) for x, y in zip(seeded, oracle)]
+    print(f"[smoke] p=910 q=0 seeded vs seeded-materialized bitwise (Xa, Xb, rho): {same}; "
+          f"sum rho {float(seeded[2].double().sum()):.6f}; peak {peak_s:.2f} / {peak_m:.2f} GB",
+          flush=True)
+    if not all(same) or not rho_ok(seeded[2]):
+        raise AssertionError("p=910 q=0: seeded is not bitwise its oracle, or rho leaves [0, 1]")
+    return {"projgram": launches_k["projgram"],
+            "projgram_seeded": launches_s["projgram_seeded"]}
 
 
 def main() -> int:
@@ -430,6 +710,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     card = card_line()
     print(f"[smoke] card: {card}", flush=True)
@@ -445,9 +726,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     print(f"[smoke] build: {time.perf_counter() - t0:.2f} s", flush=True)
-    if build.BUILD_LOG:
-        print(f"[smoke] nvcc {build.SOURCE.name} ({build.BUILD_LOG['seconds']:.2f} s):\n"
-              f"{build.BUILD_LOG['log']}", flush=True)
+    for name, entry in build.BUILD_LOG.items():
+        print(f"[smoke] nvcc {build.LIBRARIES[name].name} ({entry['seconds']:.2f} s):\n"
+              f"{entry['log']}", flush=True)
 
     from repro_torch.configs.europarl_cca import config
     from repro_torch.data import DevicePlantedChunks
@@ -460,9 +741,13 @@ def main() -> int:
     rows["omega_fill"] = phase_omega(dev)
     torch.cuda.empty_cache()
     rows["proj_stage_seeded"] = phase_seeded(dev, b)
+    torch.cuda.empty_cache()
+    rows.update(phase_recompute(dev, a, b))
     del a, b
     torch.cuda.empty_cache()
-    launches = phase_fit(dev)
+    launches = phase_smoke_fits(dev)
+    launches.update(phase_fit(dev))
+    launches.update(phase_fit_910(dev))
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}
@@ -470,6 +755,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")
+    print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

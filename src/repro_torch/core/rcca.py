@@ -167,9 +167,11 @@ def update_power_stats(s: PowerStats, a, b, Qa, Qb) -> PowerStats:
 
 
 def update_power_stats_kernel(s: PowerStats, a, b, Qa, Qb) -> PowerStats:
-    """Kernel-backed :func:`update_power_stats`: 4 launches per chunk.
+    """Kernel-backed :func:`update_power_stats`: 4 launches per chunk
+    staged, 2 recomputed (``ops.power_pass_chunk``; the schedule rule
+    decides per shape).
 
-    ΔYa and ΔYb are added into ``s.Ya`` / ``s.Yb`` IN PLACE by the sweep
+    ΔYa and ΔYb are added into ``s.Ya`` / ``s.Yb`` IN PLACE by the
     kernels (f32 accumulators, which :func:`stats_init_fn` makes).  The
     accumulator owns ``s``, so nothing else sees the update.
     """
@@ -185,7 +187,8 @@ def update_final_stats(s: FinalStats, a, b, Qa, Qb) -> FinalStats:
 
 
 def update_final_stats_kernel(s: FinalStats, a, b, Qa, Qb) -> FinalStats:
-    """Kernel-backed :func:`update_final_stats`: 5 launches per chunk."""
+    """Kernel-backed :func:`update_final_stats`: 5 launches per chunk
+    staged, 3 recomputed (``ops.final_pass_chunk``)."""
     dCa, dCb, dF = kops.final_pass_chunk(a, b, Qa, Qb)
     return FinalStats(Ca=s.Ca + dCa.to(s.Ca.dtype), Cb=s.Cb + dCb.to(s.Cb.dtype),
                       F=s.F + dF.to(s.F.dtype), **_row_sums(s, a, b))

@@ -162,22 +162,25 @@ class PassEngine:
 
         ``on_pass_complete(pass_idx, kind, acc, Qa, Qb)`` fires once per
         pass after its fold, with the accumulator and the Qa/Qb payload
-        the pass consumed (the seeds on a seeded pass 0).
+        the pass consumed (the seeds on a seeded pass 0).  The result's
+        ``diagnostics["schedules"]`` holds the schedule each pass's
+        kernels resolved (``"staged"``, ``"recompute"``, ``"a/b"`` when
+        the views differ, None under the torch engine).
         """
         from ..core.rcca import (finalize_result, power_update_Q, seeded_update_fn,
                                  stats_init_fn, update_fn)
 
         cfg = self.cfg
         Qa, Qb = self._init_payload(Qa, Qb, seed, da, db)
+        schedules = []
         for pass_idx, kind in pass_schedule(cfg.q):
             acc = SegmentedAccumulator(
                 stats_init_fn(kind, da, db, cfg.sketch, self.device), n_chunks,
                 self.merge_group)
-            if self.seeds_in_slots and pass_idx == 0:
-                fn = seeded_update_fn(kind, cfg.sketch)
-            else:
-                fn = update_fn(kind, self.engine)
-            run_fold(self._indexed_on_device(source_factory()), fn, acc, Qa, Qb)
+            seeded = self.seeds_in_slots and pass_idx == 0
+            fn = seeded_update_fn(kind, cfg.sketch) if seeded else update_fn(kind, self.engine)
+            run_fold(self._indexed_on_device(source_factory()),
+                     self._recording(fn, kind, cfg.sketch, seeded, schedules), acc, Qa, Qb)
             if on_pass_complete is not None:
                 on_pass_complete(pass_idx, kind, acc, Qa, Qb)
             if kind == "power":
@@ -185,7 +188,25 @@ class PassEngine:
                     Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)
                 Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
         Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
-        return finalize_result(acc.result(), Qa, Qb, cfg, da, db)
+        res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
+        res.diagnostics["schedules"] = schedules
+        return res
+
+    def _recording(self, fn, kind: str, kt: int, seeded: bool, schedules: list):
+        """``fn``, appending to ``schedules`` the schedule the kernels
+        resolve for the pass's first chunk (``ops.chunk_cost``; None for
+        the torch engine)."""
+        from ..kernels import ops as kops
+
+        n_pass = len(schedules)
+
+        def upd(s, a, b, Qa, Qb):
+            if len(schedules) == n_pass:
+                schedules.append(kops.chunk_cost(
+                    kind, int(a.shape[0]), int(a.shape[1]), int(b.shape[1]), kt,
+                    engine=self.engine, seeded=seeded)["schedule"])
+            return fn(s, a, b, Qa, Qb)
+        return upd
 
     def run(self, access, Qa=None, Qb=None, **kwargs):
         """All passes over a random-access chunk source (``StackedChunks``)."""

@@ -1,21 +1,27 @@
 """Build, load and launch the port's CUDA kernels.
 
-The source ``csrc/gemm_f32.cu`` (which includes ``csrc/rand.cuh``) is
-compiled at first use with one ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``:
+Two sources in ``csrc/``, each compiled at first use by its own ``nvcc``
+(both started together) into a shared library with a plain C interface,
+loaded with ``ctypes``:
+
+- ``gemm_f32.cu`` — the staged products and the seeded stage;
+- ``recompute_f32.cu`` — the fused recompute kernels;
+
+both including ``gemm.cuh`` (the shared f32 tile) and ``rand.cuh`` (the
+Ω generator):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <build>/gemm_f32-<hash>.so csrc/gemm_f32.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library lands in ``build/repro_torch_kernels/`` at the root of the
-checkout (git ignores ``build/``), named by a hash of every source it
-compiles and the flags, so an edited source or header is rebuilt and an
+The libraries land in ``build/repro_torch_kernels/`` at the root of the
+checkout (git ignores ``build/``), named by a hash of the source, every
+header and the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.  Nothing here runs at import: the CPU
 tests import every module of the port.
 
-Every launch goes through :func:`launch`, which raises on a non-zero
-``cudaGetLastError()`` and adds one to that entry point's count in
-:data:`LAUNCHES` — the proof that a run went through the kernels.
+Every launch goes through :func:`launch`, which raises on a non-zero CUDA
+error and adds one to that entry point's count in :data:`LAUNCHES` — the
+proof that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,30 +36,46 @@ import time
 from collections import Counter
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_f32.cu"
-#: Everything the one nvcc compiles: the source and the headers it includes.
-SOURCES = (SOURCE, SOURCE.parent / "rand.cuh")
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: The libraries: name → its one source.
+LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "recompute_f32": CSRC / "recompute_f32.cu"}
+#: The headers every source may include; each goes into every digest.
+HEADERS = (CSRC / "gemm.cuh", CSRC / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _ptr, _i64, _int, _u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
-#: C signatures of the library's entry points.
+#: C signatures of the entry points, by library.
 SIGNATURES = {
-    "gemm_nn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
-    "gemm_tn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
-    # x, seed words, p, slab scratch, slab rows, M, N, K, stream
-    "proj_stage_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr],
-    # out, rows, cols, r0, d, kt, seed words, stream
-    "omega_fill_f32": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
+    "gemm_f32": {
+        "gemm_nn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
+        "gemm_tn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        # x, seed words, p, slab scratch, slab rows, M, N, K, stream
+        "proj_stage_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr],
+        # out, rows, cols, r0, d, kt, seed words, stream
+        "omega_fill_f32": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
+    },
+    "recompute_f32": {
+        # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, stream
+        "recompute_f32": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
+                          _ptr],
+        # x, seed words, p, slab scratch, slab rows, a2, y, n, kt, d, m2, lda2,
+        # accumulate, stream
+        "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
+                                 _i64, _i64, _i64, _int, _ptr],
+    },
 }
+#: Each library's ``cudaGetErrorString``.
+ERROR_STRINGS = {"gemm_f32": "gemm_error_string", "recompute_f32": "recompute_error_string"}
+_LIB_OF = {fn: lib for lib, fns in SIGNATURES.items() for fn in fns}
 
 #: Launches per Python entry point since the last :func:`reset_launches`.
 LAUNCHES: Counter = Counter()
 
-_LIB: ctypes.CDLL | None = None
-#: ``{"seconds": ..., "log": nvcc's output}`` when this process compiled
-#: the library (empty when it was found already built).
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: ``{library: {"seconds": ..., "log": nvcc's output}}`` for each library
+#: this process compiled (empty when all were found already built).
 BUILD_LOG: dict = {}
 
 
@@ -72,47 +94,60 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target() -> Path:
-    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in (LIBRARIES[name], *HEADERS))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
+    return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build() -> ctypes.CDLL:
-    """Compile the source if it is not built yet, load the library once,
-    and return it."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    target = _target()
-    if not target.exists():
+def build() -> dict[str, ctypes.CDLL]:
+    """Compile every library that is not built yet — one ``nvcc`` each,
+    all started together — load each once, and return them by name."""
+    if _LIBS:
+        return _LIBS
+    todo = {name: _target(name) for name in LIBRARIES if not _target(name).exists()}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        BUILD_LOG.update(seconds=time.perf_counter() - t0, log=proc.stdout)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
-        os.replace(tmp, target)  # atomic: a reader never sees half a file
-    lib = ctypes.CDLL(str(target))
-    for fn, argtypes in SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.gemm_error_string.argtypes = [ctypes.c_int]
-    lib.gemm_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+        nvcc = _nvcc()
+        jobs = {}
+        for name, target in todo.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(LIBRARIES[name])],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, t0) in jobs.items():
+            log = proc.communicate()[0]
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed for {LIBRARIES[name].name}:\n{log}")
+            else:
+                os.replace(tmp, todo[name])  # atomic: a reader never sees half a file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    libs = {}
+    for name in LIBRARIES:
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        err = getattr(lib, ERROR_STRINGS[name])
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        libs[name] = lib
+    _LIBS.update(libs)
+    return _LIBS
 
 
 def launch(entry: str, fn: str, *args) -> None:
     """Call C function ``fn`` on behalf of Python entry point ``entry``;
     raise on a CUDA error, else count the launch."""
-    lib = build()
+    name = _LIB_OF[fn]
+    lib = build()[name]
     rc = getattr(lib, fn)(*args)
     if rc != 0:
-        msg = lib.gemm_error_string(rc).decode()
+        msg = getattr(lib, ERROR_STRINGS[name])(rc).decode()
         raise RuntimeError(f"{entry}: {fn} launch failed with CUDA error {rc} ({msg})")
     LAUNCHES[entry] += 1

@@ -1,0 +1,180 @@
+// The recompute schedule of the data passes on Hopper (sm_90a): the
+// projection P = X·Q and its accumulation in ONE launch.
+//
+//   recompute_f32         ← projgram        replaces src/repro/kernels/projgram.py
+//                                             _projgram_kernel  (P, C = PᵀP)
+//                         ← power_project_accumulate
+//                                           replaces src/repro/kernels/powerpass.py
+//                                             _powerpass_kernel  (ΔY = Aᵀ(B·Q))
+//   recompute_seeded_f32  ← projgram_seeded replaces src/repro/kernels/projgram.py
+//                                             _projgram_seeded_kernel
+//                         ← power_project_accumulate_seeded
+//                                           replaces src/repro/kernels/powerpass.py
+//                                             _powerpass_seeded_kernel
+//
+// What the TPU kernels keep out of device memory: P.  They hold a
+// (256 × k̃p) P tile in VMEM scratch over the contraction and fold it into
+// the VMEM-resident output bucket on the last step.  On Hopper one P row at
+// k̃p = 1024 is 4 KB, so the rows a C or ΔY tile needs (all of the chunk's)
+// do not fit the 227 KB of shared memory a block may use, and blocks run in
+// no order, so nothing can carry from one block to the next.
+//
+// Design: one persistent cooperative launch (cudaLaunchCooperativeKernel,
+// at most as many blocks as can be resident at once, sized from the
+// occupancy API).
+//   phase 1  the blocks sweep P's 128 × 128 tiles, each projected once
+//            with gemm_nn's FMA chains, into an (n × k̃) buffer;
+//   barrier  grid-wide (cooperative_groups::grid_group::sync);
+//   phase 2  the blocks sweep the tiles of the accumulator's bucket
+//            (rows [r0, r0 + m2) of C or ΔY) with gemm_tn's chains,
+//            reading P through L2 (ld.global.cg: other blocks wrote it).
+// The chunk's P (8192 × 1024 × 4 B = 32 MiB at k̃ = 970) fits the 50 MB L2
+// between the phases: the Hopper counterpart of "P never makes an HBM round
+// trip", and the one-bucket condition of the schedule rule (plan.py
+// ONE_BUCKET_ELEMS).  The other two designs: C-tile owners that recompute
+// their own P slabs project every P element once per C tile column, ~16×
+// the projection at k̃p = 1024; thread-block clusters with distributed
+// shared memory hold at most 8 × 227 KB of P, 456 rows at k̃p = 1024, so a
+// C tile would have to be handed from cluster to cluster in row order.  The
+// persistent launch is the simple one that projects each P element once.
+//
+// Bitwise contract: staged ≡ recompute.  Both phases run gemm.cuh's tile,
+// so each P element is gemm_nn's chain (ascending d from 0.0f) and each C
+// or ΔY element is gemm_tn's (ascending rows from 0.0f); with `accumulate`
+// the tile adds into Y once after the chain, as powerpass_sweep(out=) does.
+// No atomics anywhere.
+//
+// Buckets.  A recompute at a shape of several buckets (the wrapper's loop,
+// one launch per bucket) projects P again for every bucket, as the TPU
+// kernel re-accumulates P per bucket: the schedule rule charges that and
+// stages such shapes unless told otherwise.
+//
+// Seeded variants: Ω(seed) is made once per chunk (per bucket) in K-slabs
+// of `slab_rows` rows by omega_fill (rand.cuh), as proj_stage_seeded makes
+// it; every slab but the last is contracted by the plain NN launch
+// continuing P's chains, and the last by the fused launch, whose phase 1
+// continues them.  So the result is bitwise the materialized recompute on
+// omega_fill(seed), and one call issues 2·⌈d / slab_rows⌉ launches.
+//
+// What bounds it: arithmetic, as gemm.cuh says of the tile; phase 2 adds
+// 2·n·m2·k̃ FLOPs to phase 1's 2·n·d·k̃ (≈ 0.2 % at k̃ = 970, d = 2^19), but
+// runs only ⌈m2/128⌉·⌈k̃/128⌉ tiles (64 at k̃ = 970) on a grid of ~264
+// blocks, so it costs about one tile's contraction over the chunk.
+//
+// C interface (loaded with ctypes): pointers and the stream as void*,
+// sizes as long long; each entry returns the first CUDA error of its
+// launches (0 when all were accepted).
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gemm.cuh"
+#include "rand.cuh"
+
+namespace {
+
+using namespace gemm_f32;
+namespace cg = cooperative_groups;
+
+// Phase 1: P (n × kt) = X·Q over K1 columns of X (row stride ldx), in
+// mode1 (OVERWRITE, or CONTINUE for the last slab of a seeded call).
+// Barrier.  Phase 2: Y (m2 × kt) (+)= A2ᵀ·P, A2 (n × m2) with row stride
+// lda2 — MODE2 is OVERWRITE or ACCUMULATE.
+template <int MODE2>
+__global__ void __launch_bounds__(THREADS, 2)
+recompute_f32_kernel(const float* __restrict__ X, const float* __restrict__ Q, float* P,
+                     const float* A2, float* __restrict__ Y, int64_t n, int64_t kt,
+                     int64_t k1, int64_t ldx, int mode1, int64_t m2, int64_t lda2) {
+  __shared__ __align__(16) Tiles sm;
+  const int64_t tiles_n = (kt + BN - 1) / BN;
+  const int64_t tiles_m1 = (n + BM - 1) / BM;
+  for (int64_t t = blockIdx.x; t < tiles_m1 * tiles_n; t += gridDim.x)
+    gemm_tile<false, RUNTIME>(X, Q, P, n, kt, k1, ldx, mode1, (t % tiles_m1) * BM,
+                              (t / tiles_m1) * BN, sm);
+  cg::this_grid().sync();  // every P tile written and visible
+  const int64_t tiles_m2 = (m2 + BM - 1) / BM;
+  for (int64_t t = blockIdx.x; t < tiles_m2 * tiles_n; t += gridDim.x)
+    gemm_tile<true, MODE2, true>(A2, P, Y, m2, kt, n, lda2, MODE2, (t % tiles_m2) * BM,
+                                 (t / tiles_m2) * BN, sm);
+}
+
+template <int MODE2>
+int launch_recompute(const float* x, const float* q, float* p, const float* a2, float* y,
+                     int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1,
+                     int64_t m2, int64_t lda2, cudaStream_t stream) {
+  const void* kern = (const void*)recompute_f32_kernel<MODE2>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int64_t tiles_n = (kt + BN - 1) / BN;
+  const int64_t t1 = ((n + BM - 1) / BM) * tiles_n, t2 = ((m2 + BM - 1) / BM) * tiles_n;
+  const int64_t tiles = t1 > t2 ? t1 : t2;
+  const int64_t resident = (int64_t)per_sm * sms;
+  const dim3 grid((unsigned)(tiles < resident ? tiles : resident));
+  void* args[] = {&x, &q, &p, &a2, &y, &n, &kt, &k1, &ldx, &mode1, &m2, &lda2};
+  err = cudaLaunchCooperativeKernel(kern, grid, dim3(THREADS), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int recompute(const float* x, const float* q, float* p, const float* a2, float* y,
+              int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1, int64_t m2,
+              int64_t lda2, int accumulate, cudaStream_t stream) {
+  return accumulate ? launch_recompute<ACCUMULATE>(x, q, p, a2, y, n, kt, k1, ldx, mode1,
+                                                   m2, lda2, stream)
+                    : launch_recompute<OVERWRITE>(x, q, p, a2, y, n, kt, k1, ldx, mode1,
+                                                  m2, lda2, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// P (n×kt) = X (n×d) · Q (d×kt), then Y (m2×kt) (+)= A2ᵀ·P with A2 the
+// (n × m2) window of a row-major array of row stride lda2: one launch.
+// projgram passes A2 = P[:, r0:], Y = C[r0:]; power_project_accumulate
+// passes A2 = A[:, r0:], Y = ΔY[r0:], and P is its scratch.
+int recompute_f32(const void* x, const void* q, void* p, const void* a2, void* y,
+                  long long n, long long kt, long long d, long long m2, long long lda2,
+                  int accumulate, void* stream) {
+  return recompute((const float*)x, (const float*)q, (float*)p, (const float*)a2,
+                   (float*)y, n, kt, d, d, OVERWRITE, m2, lda2, accumulate,
+                   (cudaStream_t)stream);
+}
+
+// recompute_f32 with Q = Ω(seed) (d×kt) made slab by slab into `slab`
+// (≥ min(d, slab_rows) × kt floats).  slab_rows must be a positive
+// multiple of BK, so that slab edges fall on BK steps.
+int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
+                         long long slab_rows, const void* a2, void* y, long long n,
+                         long long kt, long long d, long long m2, long long lda2,
+                         int accumulate, void* stream) {
+  if (slab_rows <= 0 || slab_rows % BK != 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  for (long long k0 = 0; k0 < d; k0 += slab_rows) {
+    const long long ks = d - k0 < slab_rows ? d - k0 : slab_rows;
+    const cudaError_t err = rand_f32::launch_omega_fill((float*)slab, ks, kt, (uint32_t)k0,
+                                                        d, kt, s0, s1, st);
+    if (err != cudaSuccess) return (int)err;
+    const float* window = (const float*)x + k0;  // X[:, k0 : k0 + ks], row stride d
+    const int mode1 = k0 == 0 ? OVERWRITE : CONTINUE;
+    const int rc = k0 + ks < d
+        ? launch_gemm<false, RUNTIME>(window, slab, p, n, kt, ks, d, mode1, st)
+        : recompute(window, (const float*)slab, (float*)p, (const float*)a2, (float*)y, n,
+                    kt, ks, d, mode1, m2, lda2, accumulate, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+const char* recompute_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,11 +1,14 @@
-"""The two f32 GEMM launchers, and the TN product ``matmul_tn``.
+"""The f32 GEMM launchers, the TN product ``matmul_tn``, and the
+schedule crossover.
 
 ``matmul_tn`` (O = Xᵀ·Y) is the port of ``repro/kernels/matmul.py``
 ``_mm_tn_kernel`` as ``pallas_matmul(transpose_lhs=True)`` launches it;
 on the main path it computes the final pass's cross term F = PaᵀPb.
-:func:`gemm_nn`, :func:`gemm_nn_seeded` and :func:`gemm_tn` are the
-checked launchers every GEMM entry point of the package goes through
-(kernel source: ``csrc/gemm_f32.cu``).
+:func:`gemm_nn`, :func:`gemm_nn_seeded`, :func:`gemm_tn` and
+:func:`recompute` are the checked launchers every GEMM entry point of the
+package goes through (kernel sources: ``csrc/gemm_f32.cu``,
+``csrc/recompute_f32.cu``).  :func:`pick_schedule` is the port of the
+reference's crossover rule, at the H100's balance point.
 
 A wrapper takes its plain version (:mod:`.ref`) only when its tensors
 lie on the CPU.  For CUDA tensors it launches the kernel or raises.
@@ -16,13 +19,25 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
+from .plan import SEEDED_SLAB, TILE
 
 _MAX_GRID_Y = 65535  # column tiles ride gridDim.y
-_TILE = 128
-#: Ω rows per slab of the seeded stage: 34 MB at k̃ = 2060, inside the
-#: H100's 50 MB L2.  A multiple of the kernel's contraction step (16), so
-#: slab edges keep each element's FMA chain (the C side checks).
-SEEDED_SLAB = 4096
+
+#: The H100's f32 balance point: 67 TFLOP/s on the CUDA cores ÷ 3.35 TB/s
+#: of HBM ≈ 20 FLOP per byte (the reference's 240 is a TPU's).  The f32
+#: products run on the CUDA cores because TF32 would break parity.
+ROOFLINE_FLOPS_PER_BYTE = 67e12 / 3.35e12
+
+
+def pick_schedule(costs: dict, *, roofline: float = ROOFLINE_FLOPS_PER_BYTE) -> str:
+    """The cheaper schedule of ``costs`` (name → (FLOPs, bytes) of the
+    launches it issues), charged max(FLOPs / roofline, bytes); ties go
+    to the first name in sorted order, as in the reference."""
+    def t(c) -> float:
+        flops, nbytes = c
+        return max(float(flops) / roofline, float(nbytes))
+
+    return min(sorted(costs), key=lambda k: t(costs[k]))
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -54,7 +69,7 @@ def _stream(t: torch.Tensor) -> int:
 def _grid_ok(entry: str, M: int, N: int) -> None:
     if M == 0 or N == 0:
         raise ValueError(f"{entry}: empty output ({M}, {N})")
-    if -(-N // _TILE) > _MAX_GRID_Y:
+    if -(-N // TILE) > _MAX_GRID_Y:
         raise ValueError(f"{entry}: {N} output columns exceed the launch grid")
 
 
@@ -108,6 +123,26 @@ def gemm_tn(entry: str, x: torch.Tensor, y: torch.Tensor,
     build.launch(entry, "gemm_tn_f32", x.data_ptr(), y.data_ptr(),
                  out.data_ptr(), M, N, K, int(accumulate), _stream(x))
     return out
+
+
+def recompute(entry: str, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.Tensor,
+              y: torch.Tensor, r0: int, r1: int, *, accumulate: bool = False) -> None:
+    """One fused recompute launch on the card: P = x·q (q a (d, kt)
+    tensor, or a seed whose Ω is made in slabs), then rows [r0, r1) of y
+    (+)= a2[:, r0:r1]ᵀ·P.  ``p`` (n, kt) receives P; a2 is (n, ·) and y
+    (·, kt), both row-major.  A seeded call issues 2·⌈d / SEEDED_SLAB⌉
+    CUDA launches, the last of them the fused one."""
+    n, d = x.shape
+    m2, lda2 = r1 - r0, a2.shape[1]
+    a2_ptr, y_ptr = a2.data_ptr() + 4 * r0, y.data_ptr() + 4 * r0 * kt
+    if isinstance(q, torch.Tensor):
+        build.launch(entry, "recompute_f32", x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr,
+                     y_ptr, n, kt, d, m2, lda2, int(accumulate), _stream(x))
+        return
+    slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=torch.float32, device=x.device)
+    build.launch(entry, "recompute_seeded_f32", x.data_ptr(), q[0] & 0xFFFFFFFF,
+                 q[1] & 0xFFFFFFFF, p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr,
+                 n, kt, d, m2, lda2, int(accumulate), _stream(x))
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

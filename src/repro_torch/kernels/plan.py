@@ -1,0 +1,232 @@
+"""Launch plans: what each CUDA launch of the port does.
+
+Port of ``repro/kernels/plan.py`` ``KernelPlan`` in the role it plays for
+the schedule rule and the cost model.  A :class:`LaunchPlan` records one
+CUDA launch: the kernel, its grid and block, its shared memory, the f32
+FLOPs it does, and the bytes it moves, reckoned as each input read once
+and each output written once.  A ``plan_*`` function returns the launches
+one call of the entry point of that name issues, in order.
+
+Plans come from the port's own tiles (``csrc/gemm.cuh``: a 128 × 128
+output tile per 256-thread block, 16,640 bytes of staging), never from
+the TPU's ``VMEM_BLOCK_ELEMS``.  Only the buckets of the recompute
+schedule share a number with the reference, and for a reason of their
+own (:data:`ONE_BUCKET_ELEMS`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+TILE = 128  # output rows and columns per block (BM = BN)
+THREADS = 256
+SMEM_BYTES = 4 * 16 * (TILE + 4) + 4 * 16 * TILE  # gemm.cuh Tiles: As + Bs
+FILL_BLOCK = (64, 4)  # rand.cuh omega_fill: columns × rows per block
+#: Blocks the cooperative recompute launch keeps resident on an H100 SXM:
+#: 2 per SM (``__launch_bounds__(256, 2)``) × 132 SMs.  The launcher asks
+#: the occupancy API at run time; the plans use this design value.
+RESIDENT_BLOCKS = 2 * 132
+#: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060, inside the
+#: H100's 50 MB L2.  A multiple of the kernel's contraction step (16), so
+#: slab edges keep each element's FMA chain (the C side checks).
+SEEDED_SLAB = 4096
+
+#: The largest accumulator bucket — rows × k̃p of ΔY (da × k̃p) or of
+#: C (k̃p × k̃p), k̃p = k̃ rounded up to the 128-column tile — that one
+#: fused recompute launch covers: 2^20 f32 elements, 4 MiB.
+#:
+#: The launch (``csrc/recompute_f32.cu``) keeps the chunk's P, n × k̃p,
+#: in the 50 MB L2 between its two phases.  At the stream's chunk of 8192
+#: rows that is 32 MiB at k̃p = 1024, which leaves ~18 MB for what phase 2
+#: streams beside it: the accumulator bucket it writes and the operand
+#: panels it reads.  Holding the bucket to 4 MiB keeps the two from
+#: evicting P.  For C the bound reads k̃p ≤ 1024, the same condition as
+#: P ≤ 32 MiB at 8192 rows, so the recompute shapes are exactly those
+#: whose P fits L2 beside its Gram.  The reference's VMEM budget is the
+#: same 2^20 elements, so the one-bucket shapes of the two packages agree
+#: (``tests/test_torch_recompute.py`` pins them).
+ONE_BUCKET_ELEMS = 1 << 20
+
+SCHEDULES = ("recompute", "staged")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One CUDA launch."""
+
+    kernel: str
+    grid: tuple[int, ...]
+    block: tuple[int, ...]
+    smem_bytes: int
+    flops: int
+    bytes: int
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def padded(x: int) -> int:
+    """``x`` rounded up to the tile."""
+    return cdiv(x, TILE) * TILE
+
+
+def bucket_rows(kt: int) -> int:
+    """Accumulator rows one recompute launch covers at sketch width k̃."""
+    return max(TILE, ONE_BUCKET_ELEMS // padded(kt) // TILE * TILE)
+
+
+def buckets(rows: int, kt: int) -> list[tuple[int, int]]:
+    """The [r0, r1) row ranges of an accumulator of ``rows`` rows, one per
+    recompute launch."""
+    step = bucket_rows(kt)
+    return [(r0, min(r0 + step, rows)) for r0 in range(0, rows, step)]
+
+
+def check_schedule(schedule: str) -> str:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; expected one of {SCHEDULES}")
+    return schedule
+
+
+def cost(plans) -> tuple[int, int]:
+    """(FLOPs, bytes) of a sequence of launches."""
+    return sum(p.flops for p in plans), sum(p.bytes for p in plans)
+
+
+# --------------------------------------------------------------------------
+# single launches
+# --------------------------------------------------------------------------
+
+
+def gemm_nn(M: int, N: int, K: int, *, cont: bool = False) -> LaunchPlan:
+    """P (M×N) = X (M×K)·Q (K×N); ``cont`` continues P's chains (reads P)."""
+    return LaunchPlan("gemm_nn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
+                      2 * M * N * K, 4 * (M * K + K * N + M * N * (2 if cont else 1)))
+
+
+def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False) -> LaunchPlan:
+    """O (M×N) (+)= Xᵀ·Y with X (K×M), Y (K×N)."""
+    return LaunchPlan("gemm_tn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
+                      2 * M * N * K, 4 * (K * M + K * N + M * N * (2 if accumulate else 1)))
+
+
+def omega_fill(rows: int, cols: int) -> LaunchPlan:
+    """Rows × cols of Ω, written once; its work is integer, not FLOPs."""
+    return LaunchPlan("omega_fill", (cdiv(rows, FILL_BLOCK[1]), cdiv(cols, FILL_BLOCK[0])),
+                      FILL_BLOCK, 0, 0, 4 * rows * cols)
+
+
+def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int) -> LaunchPlan:
+    """One fused launch: P (n×k̃) over k1 contraction columns, then an
+    m2-row accumulator bucket.  ``nbytes`` depends on which operands are
+    the entry point's inputs and outputs."""
+    tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
+    return LaunchPlan("recompute_f32", (min(RESIDENT_BLOCKS, tiles),), (THREADS,), SMEM_BYTES,
+                      2 * n * k1 * kt + 2 * n * m2 * kt, nbytes)
+
+
+def _per_bucket(rows: int, kt: int, one_bucket) -> tuple[LaunchPlan, ...]:
+    """The launches of one call per recompute bucket, ``one_bucket(r0, r1)``
+    planned once per distinct bucket height (all but the last are equal):
+    a seeded power pass at Europarl width issues ~350,000 launches."""
+    made: dict[int, tuple[LaunchPlan, ...]] = {}
+    out: list[LaunchPlan] = []
+    for r0, r1 in buckets(rows, kt):
+        if r1 - r0 not in made:
+            made[r1 - r0] = one_bucket(r0, r1)
+        out.extend(made[r1 - r0])
+    return tuple(out)
+
+
+def _seeded(n: int, d: int, kt: int, last) -> tuple[LaunchPlan, ...]:
+    """The slab launches of a seeded call: omega_fill then the NN launch
+    per slab, ``last(k1, cont)`` contracting the last slab."""
+    out = []
+    for k0 in range(0, d, SEEDED_SLAB):
+        ks = min(SEEDED_SLAB, d - k0)
+        out.append(omega_fill(ks, kt))
+        out.append(gemm_nn(n, kt, ks, cont=k0 > 0) if k0 + ks < d else last(ks, k0 > 0))
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+
+
+def plan_proj_stage(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
+    return (gemm_nn(n, kt, d),)
+
+
+def plan_proj_stage_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
+    return _seeded(n, d, kt, lambda ks, cont: gemm_nn(n, kt, ks, cont=cont))
+
+
+def plan_powerpass_sweep(n: int, da: int, kt: int, *,
+                         accumulate: bool = False) -> tuple[LaunchPlan, ...]:
+    return (gemm_tn(da, kt, n, accumulate=accumulate),)
+
+
+def plan_gram_sweep(n: int, kt: int) -> tuple[LaunchPlan, ...]:
+    return (gemm_tn(kt, kt, n),)
+
+
+def plan_matmul_tn(K: int, M: int, N: int) -> tuple[LaunchPlan, ...]:
+    return (gemm_tn(M, N, K),)
+
+
+def plan_omega_fill(rows: int, kt: int) -> tuple[LaunchPlan, ...]:
+    return (omega_fill(rows, kt),)
+
+
+def plan_projgram(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
+    """One launch per C bucket: X and Q read, P and the bucket's rows of
+    C written."""
+    return _per_bucket(kt, kt, lambda r0, r1: (
+        recompute(n, kt, d, r1 - r0, 4 * (n * d + d * kt + n * kt + (r1 - r0) * kt)),))
+
+
+def plan_projgram_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
+    """Per C bucket, the slabs of a seeded call; the last slab's fused
+    launch reads X's window, the slab and P, and writes P and the rows
+    of C."""
+    def last(r0, r1):
+        return lambda ks, cont: recompute(
+            n, kt, ks, r1 - r0,
+            4 * (n * ks + ks * kt + n * kt * (2 if cont else 1) + (r1 - r0) * kt))
+    return _per_bucket(kt, kt, lambda r0, r1: _seeded(n, d, kt, last(r0, r1)))
+
+
+def plan_power_project_accumulate(n: int, da: int, db: int, kt: int, *,
+                                  accumulate: bool = False) -> tuple[LaunchPlan, ...]:
+    """One launch per ΔY bucket: B, Q and the bucket's columns of A
+    read, its rows of ΔY written (and read, when accumulating).  P is
+    the launch's own scratch, neither input nor output."""
+    y = 2 if accumulate else 1
+    return _per_bucket(da, kt, lambda r0, r1: (recompute(
+        n, kt, db, r1 - r0, 4 * (n * db + db * kt + n * (r1 - r0) + y * (r1 - r0) * kt)),))
+
+
+def plan_power_project_accumulate_seeded(n: int, da: int, db: int, kt: int, *,
+                                         accumulate: bool = False) -> tuple[LaunchPlan, ...]:
+    y = 2 if accumulate else 1
+
+    def last(r0, r1):
+        m2 = r1 - r0
+        return lambda ks, cont: recompute(
+            n, kt, ks, m2,
+            4 * (n * ks + ks * kt + (n * kt if cont else 0) + n * m2 + y * m2 * kt))
+    return _per_bucket(da, kt, lambda r0, r1: _seeded(n, db, kt, last(r0, r1)))
+
+
+def plan_projgram_staged(n: int, d: int, kt: int, *,
+                         seeded: bool = False) -> tuple[LaunchPlan, ...]:
+    stage = plan_proj_stage_seeded if seeded else plan_proj_stage
+    return stage(n, d, kt) + plan_gram_sweep(n, kt)
+
+
+def plan_powerpass_staged(n: int, da: int, db: int, kt: int, *, accumulate: bool = False,
+                          seeded: bool = False) -> tuple[LaunchPlan, ...]:
+    stage = plan_proj_stage_seeded if seeded else plan_proj_stage
+    return stage(n, db, kt) + plan_powerpass_sweep(n, da, kt, accumulate=accumulate)

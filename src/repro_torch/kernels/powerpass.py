@@ -1,29 +1,37 @@
-"""The staged power-pass products: stage P = X·Q, then sweep ΔY = AᵀP.
+"""The power-pass products: ΔY = Aᵀ(B·Q), staged or recomputed.
 
-Port of the staged schedule of ``repro/kernels/powerpass.py``, the one
-the reference's own schedule rule picks at Europarl width:
+Port of ``repro/kernels/powerpass.py``.  Two schedules, bitwise equal:
 
-- :func:`proj_stage` — P = X·Q in f32, the port of ``_proj_stage_kernel``;
-- :func:`powerpass_sweep` — ΔY = Aᵀ·P, the port of
-  ``_powerpass_sweep_kernel``;
-- :func:`power_project_accumulate` — stage then sweep, as ``_staged_call``;
-- :func:`proj_stage_seeded` — P = X·Ω(seed), the port of
-  ``_proj_stage_seeded_kernel``: Ω is made on the card in K-slabs of
-  4096 rows, each contracted as it is made, so no (d, k̃) Ω exists;
-- :func:`power_project_accumulate_seeded` — seeded stage then sweep.
+- *staged*: :func:`proj_stage` (P = X·Q in f32, the port of
+  ``_proj_stage_kernel``) writes P to device memory, then
+  :func:`powerpass_sweep` (ΔY = Aᵀ·P, ``_powerpass_sweep_kernel``)
+  reads it back: 2 launches;
+- *recompute*: one fused launch per ΔY bucket (``csrc/recompute_f32.cu``,
+  the port of ``_powerpass_kernel``) projects P and folds it into ΔY with
+  P held in L2 between its phases; a shape of several buckets projects P
+  again for each (:data:`~repro_torch.kernels.plan.ONE_BUCKET_ELEMS`).
 
-The TPU kernels bucket ΔY's rows to fit VMEM and keep P padded to 128
-between the phases.  Here each phase is one CUDA launch over an
-(output tiles) grid that contracts its whole K range inside a block, and
-P is the exact (n, k̃) f32 tensor: nothing is padded.
+:func:`power_project_accumulate` picks one per shape
+(:func:`choose_powerpass_schedule`) unless told.  The seeded forms make
+Ω(seed) on the card in K-slabs of 4096 rows, each contracted as it is
+made, so no (d, k̃) Ω exists: :func:`proj_stage_seeded` (the port of
+``_proj_stage_seeded_kernel``) and the recompute of
+:func:`power_project_accumulate_seeded` (``_powerpass_seeded_kernel``).
+
+Each phase is one CUDA launch over an (output tiles) grid that contracts
+its whole K range inside a block, and P is the exact (n, k̃) f32 tensor:
+nothing is padded.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from . import ref
-from .matmul import gemm_nn, gemm_nn_seeded, gemm_tn, on_cpu
+from . import plan, ref
+from .matmul import (_check, _grid_ok, gemm_nn, gemm_nn_seeded, gemm_tn, on_cpu,
+                     pick_schedule, recompute)
 
 
 def proj_stage(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -48,24 +56,98 @@ def powerpass_sweep(a: torch.Tensor, p: torch.Tensor, *,
     return gemm_tn("powerpass_sweep", a, p, out)
 
 
-def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, *,
-                             out: torch.Tensor | None = None) -> torch.Tensor:
-    """ΔY = aᵀ(b·q): stage P = b·q once, then sweep (2 launches)."""
-    return powerpass_sweep(a, proj_stage(b, q), out=out)
-
-
 def proj_stage_seeded(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     """P = x·Ω(seed) in f32.  x: (n, d), seed: the view's two uint32
     words → (n, k̃).  On the card, bitwise ``proj_stage(x,
     omega_fill(seed, d, kt))``: the slabs continue each element's FMA
     chain, so its order is the materialized product's.  One entry-point
-    launch issues 2·⌈d / ``matmul.SEEDED_SLAB``⌉ CUDA launches."""
+    launch issues 2·⌈d / ``plan.SEEDED_SLAB``⌉ CUDA launches."""
     if on_cpu(x):
         return ref.proj_stage_seeded_ref(x, seed, kt)
     return gemm_nn_seeded("proj_stage_seeded", x, seed, kt)
 
 
+@functools.lru_cache(maxsize=256)
+def choose_powerpass_schedule(n: int, da: int, db: int, kt: int, *, seeded: bool = False,
+                              accumulate: bool = False) -> str:
+    """``"recompute"`` or ``"staged"`` for ΔY = Aᵀ(B·Q) at a:(n, da),
+    b:(n, db), k̃ — the reference's order of authority without its
+    autotune cache: a one-bucket ΔY recomputes (staging would add P's
+    round trip and remove nothing); otherwise the cheaper of the two
+    schedules' launch plans under :func:`~.matmul.pick_schedule`.  An
+    explicit ``schedule=`` to the entry point overrides this.  Memoized
+    per shape: the entry points ask on every call."""
+    if len(plan.buckets(da, kt)) == 1:
+        return "recompute"
+    fused = (plan.plan_power_project_accumulate_seeded if seeded
+             else plan.plan_power_project_accumulate)
+    return pick_schedule({
+        "recompute": plan.cost(fused(n, da, db, kt, accumulate=accumulate)),
+        "staged": plan.cost(plan.plan_powerpass_staged(n, da, db, kt, accumulate=accumulate,
+                                                       seeded=seeded)),
+    })
+
+
+def _fused(entry: str, a: torch.Tensor, b: torch.Tensor, q, kt: int,
+           out: torch.Tensor | None) -> torch.Tensor:
+    """The recompute schedule on the card: one fused launch per ΔY
+    bucket, each projecting P = b·q into a scratch the launch keeps in
+    L2 and folding rows [r0, r1) of ΔY = aᵀP (into ``out`` if given)."""
+    _check(entry, a, b, *(t for t in (q, out) if isinstance(t, torch.Tensor)))
+    (n, da), (n2, db) = a.shape, b.shape
+    if n != n2 or (isinstance(q, torch.Tensor) and tuple(q.shape) != (db, kt)):
+        raise ValueError(f"{entry}: shapes a {tuple(a.shape)}, b {tuple(b.shape)} and "
+                         f"k̃ = {kt} do not chain")
+    _grid_ok(entry, n, kt)
+    _grid_ok(entry, da, kt)
+    if out is not None and tuple(out.shape) != (da, kt):
+        raise ValueError(f"{entry}: out must be ({da}, {kt}), got {tuple(out.shape)}")
+    y = torch.empty((da, kt), dtype=torch.float32, device=a.device) if out is None else out
+    p = torch.empty((n, kt), dtype=torch.float32, device=a.device)
+    for r0, r1 in plan.buckets(da, kt):
+        recompute(entry, b, q, kt, p, a, y, r0, r1, accumulate=out is not None)
+    return y
+
+
+def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, *,
+                             schedule: str | None = None,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """ΔY = aᵀ(b·q) in f32.  a: (n, da), b: (n, db), q: (db, k̃) →
+    (da, k̃); with ``out`` the full contraction is added into it once,
+    as :func:`powerpass_sweep` does, and ``out`` is returned.
+
+    ``schedule``: ``"staged"`` (:func:`proj_stage` then
+    :func:`powerpass_sweep`, 2 launches), ``"recompute"`` (one fused
+    launch per ΔY bucket) or ``None`` (:func:`choose_powerpass_schedule`).
+    Bitwise equal on the card: the same FMA chains either way."""
+    n, da = a.shape
+    kt = q.shape[1]
+    sched = (plan.check_schedule(schedule) if schedule is not None else
+             choose_powerpass_schedule(n, da, b.shape[1], kt, accumulate=out is not None))
+    if sched == "staged":
+        return powerpass_sweep(a, proj_stage(b, q), out=out)
+    if on_cpu(a, b, q, *(() if out is None else (out,))):
+        dY = ref.power_project_accumulate_ref(a, b, q)
+        return dY if out is None else out.add_(dY)
+    return _fused("power_project_accumulate", a, b, q, kt, out)
+
+
 def power_project_accumulate_seeded(a: torch.Tensor, b: torch.Tensor, seed, kt: int, *,
+                                    schedule: str | None = None,
                                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """ΔY = aᵀ(b·Ω(seed)): seeded stage, then sweep (2 launches)."""
-    return powerpass_sweep(a, proj_stage_seeded(b, seed, kt), out=out)
+    """ΔY = aᵀ(b·Ω(seed)), Ω made on the card; bitwise
+    ``power_project_accumulate(a, b, omega_fill(seed, db, kt))`` under
+    either schedule.  Staged: :func:`proj_stage_seeded` then the sweep (2
+    entry-point launches).  Recompute: per ΔY bucket one call that makes
+    Ω slab by slab and contracts every slab but the last with the NN
+    kernel, the last with the fused launch (2·⌈db / 4096⌉ CUDA launches)."""
+    n, da = a.shape
+    sched = (plan.check_schedule(schedule) if schedule is not None else
+             choose_powerpass_schedule(n, da, b.shape[1], kt, seeded=True,
+                                       accumulate=out is not None))
+    if sched == "staged":
+        return powerpass_sweep(a, proj_stage_seeded(b, seed, kt), out=out)
+    if on_cpu(a, b, *(() if out is None else (out,))):
+        dY = ref.power_project_accumulate_seeded_ref(a, b, seed, kt)
+        return dY if out is None else out.add_(dY)
+    return _fused("power_project_accumulate_seeded", a, b, seed, kt, out)

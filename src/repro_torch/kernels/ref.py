@@ -43,6 +43,30 @@ def matmul_tn_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x.to(f32).T @ y.to(f32)
 
 
+def projgram_ref(x: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P, PᵀP) with P = x · q in f32 (``_projgram_kernel``)."""
+    p = proj_stage_ref(x, q)
+    return p, gram_sweep_ref(p)
+
+
+def projgram_seeded_ref(x: torch.Tensor, seed, kt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P, PᵀP) with P = x · Ω(seed) (``_projgram_seeded_kernel``)."""
+    p = proj_stage_seeded_ref(x, seed, kt)
+    return p, gram_sweep_ref(p)
+
+
+def power_project_accumulate_ref(a: torch.Tensor, b: torch.Tensor,
+                                 q: torch.Tensor) -> torch.Tensor:
+    """ΔY = aᵀ (b · q) in f32 (``_powerpass_kernel``)."""
+    return powerpass_sweep_ref(a, proj_stage_ref(b, q))
+
+
+def power_project_accumulate_seeded_ref(a: torch.Tensor, b: torch.Tensor, seed,
+                                        kt: int) -> torch.Tensor:
+    """ΔY = aᵀ (b · Ω(seed)) in f32 (``_powerpass_seeded_kernel``)."""
+    return powerpass_sweep_ref(a, proj_stage_seeded_ref(b, seed, kt))
+
+
 def power_pass_ref(a, b, Qa, Qb):
     """One chunk of the range-finder pass: (ΔYa, ΔYb)."""
     pb = proj_stage_ref(b, Qb)

@@ -4,6 +4,7 @@ planted Europarl stand-in.
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --engine torch
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --omega seeded
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --n-chunks 4  # Europarl width, card
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --p 910 --n-chunks 4
 
 Port of ``repro/launch/cca_fit.py --mode stream``.  Rows are made on the
 device chunk by chunk (:class:`~repro_torch.data.DevicePlantedChunks`)
@@ -12,10 +13,11 @@ and streamed through Algorithm 1's q+1 data passes
 ``--seed`` under ``--omega`` (``materialized``: drawn on the device;
 ``seeded``: the counter-based Ω, made slab by slab inside pass 0's
 kernels; ``seeded-materialized``: the same Ω made up front).
-``--n-chunks`` cuts n to that many chunks, ``--q`` overrides the number
-of power passes.  Prints the wall time and kernel launches of every
-pass, Σρ and the top-5 ρ; at smoke width also the feasibility residuals
-and the gap to the exact dense CCA.
+``--n-chunks`` cuts n to that many chunks; ``--k``, ``--p`` and ``--q``
+override the configuration's (the paper ran p ∈ {910, 2000}).  Prints
+the wall time, kernel launches and resolved schedule (staged or
+recompute) of every pass, Σρ and the top-5 ρ; at smoke width also the
+feasibility residuals and the gap to the exact dense CCA.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ class FitReport(NamedTuple):
     pass_launches: list  # kernel launches of each pass, by entry point
     pass_groups: list  # (merge groups closed, seconds the fold spent in the
                        # merge stack) of each pass
+    pass_schedules: list  # schedule the kernels resolved in each pass (None:
+                          # torch engine)
 
 
 def _sync(dev: torch.device) -> None:
@@ -79,7 +83,8 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
                                   omega=omega, engine=engine, n_chunks=data.n_chunks,
                                   on_pass_complete=on_pass_complete, device=dev)
     _sync(dev)
-    return FitReport(res, n, data.n_chunks, pass_seconds, pass_launches, pass_groups)
+    return FitReport(res, n, data.n_chunks, pass_seconds, pass_launches, pass_groups,
+                     res.diagnostics["schedules"])
 
 
 def evaluate(rep: FitReport, wl: CCAWorkload, *, seed: int = 0,
@@ -111,14 +116,20 @@ def main(argv=None) -> FitReport:
                     help="Ω provenance: drawn and held (materialized), made from the "
                          "seed inside pass 0's kernels (seeded), or the same seeded Ω "
                          "made up front (seeded-materialized, the bitwise oracle)")
+    ap.add_argument("--k", type=int, default=None,
+                    help="canonical directions (default: the configuration's)")
+    ap.add_argument("--p", type=int, default=None,
+                    help="oversampling (default: the configuration's; the paper ran "
+                         "910 and 2000)")
     ap.add_argument("--q", type=int, default=None,
                     help="power passes (default: the configuration's)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     wl = smoke_config() if args.smoke else config()
-    if args.q is not None:
-        wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, q=args.q))
+    overrides = {f: getattr(args, f) for f in ("k", "p", "q") if getattr(args, f) is not None}
+    if overrides:
+        wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, **overrides))
     cfg = wl.rcca
     t0 = time.perf_counter()
     rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
@@ -127,10 +138,11 @@ def main(argv=None) -> FitReport:
     print(f"[cca] stream mode, engine={args.engine}, omega={args.omega}, "
           f"device={args.device}, n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}) "
           f"da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}")
-    for i, (sec, launches, (groups, host_s)) in enumerate(
-            zip(rep.pass_seconds, rep.pass_launches, rep.pass_groups)):
+    for i, (sec, launches, (groups, host_s), sched) in enumerate(
+            zip(rep.pass_seconds, rep.pass_launches, rep.pass_groups, rep.pass_schedules)):
         kind = "final" if i == cfg.q else "power"
-        print(f"[cca] pass {i} ({kind}): {sec:.3f} s, kernel launches {launches}; "
+        print(f"[cca] pass {i} ({kind}): {sec:.3f} s, schedule {sched}, kernel launches "
+              f"{launches}; "
               f"merge stack: {groups} groups closed to the host, {host_s:.3f} s of the "
               "pass spent there")
     rho = rep.result.rho.double().cpu()

@@ -159,9 +159,11 @@ def test_wrappers_reject_unsupported_devices():
 
 
 def test_build_targets_are_keyed_by_source_and_flags():
-    target = build._target()
-    assert target.parent == build.BUILD_DIR
-    assert target.name.startswith("gemm_f32-") and target.suffix == ".so"
+    assert set(build.LIBRARIES) == {"gemm_f32", "recompute_f32"}
+    for name in build.LIBRARIES:
+        target = build._target(name)
+        assert target.parent == build.BUILD_DIR
+        assert target.name.startswith(f"{name}-") and target.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
