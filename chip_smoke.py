@@ -49,7 +49,24 @@ Phases, each of which fails the run by raising:
    (k̃ = 970), where the final pass recomputes: kernels engine (2
    ``projgram`` + 1 ``matmul_tn`` per final chunk, no ``gram_sweep``)
    against the torch engine, and ``--q 0 --omega seeded`` bitwise
-   ``--omega seeded-materialized``.
+   ``--omega seeded-materialized``;
+8. matmul_nn — ``matmul_nn`` (the port of ``_mm_nn_kernel``) at one
+   microbatch of one model shard at Europarl width (4096 × 2^18 · 2^18 ×
+   2060) and at 333 × 9001 → 67: within 4·√K·u of its plain version,
+   bitwise repeatable, bitwise ``proj_stage`` on the same operands, with
+   times;
+9. dist — the resident sharded fit through ``cca_fit --mode dist``: at
+   Europarl width (one 8192-row chunk, p = 2000, microbatch 4096) two
+   ranks on a 1 × 1 × 2 mesh share the card over gloo, once per
+   collective (``unfused``, ``fused``, ``fused-int8ef``) and once on the
+   torch engine: unfused ≡ fused bitwise in ρ and in each rank's Xa and
+   Xb, the launches per rank and pass of the ``ops`` table, |Δρ| ≤ 1e-3
+   against the torch engine and against stream mode on the same chunk
+   and Ω, int8ef within rtol 0.05 / atol 0.02 of fused, each rank's peak
+   memory printed; then the smoke width, centered, on four ranks
+   (1 × 2 × 2), where the row and the column sums are both real.  The
+   ranks are fresh processes, so their launch counters start at 0 in
+   each run, and each rank reports its own.
 
 Every fit resets the launch counters just before it and reads them just
 after; the total wall time is printed at the end.
@@ -89,12 +106,17 @@ STACK_ON_CARD_PEAK_GB = 69.47
 KT_910 = 970
 DA_NARROW = 1024
 
+# the sharded fit at Europarl width: one 8192-row chunk on a 1 × 1 × 2 mesh
+# (two ranks sharing the card over gloo), two microbatches per pass
+DIST_MICROBATCH = 4096
+DIST_MESH = "1,1,2"
+
 GEMM = "src/repro_torch/kernels/csrc/gemm_f32.cu"
 RECOMPUTE = "src/repro_torch/kernels/csrc/recompute_f32.cu"
 FUSED = ("projgram", "projgram_seeded", "power_project_accumulate",
          "power_project_accumulate_seeded")
 SOURCES = {name: GEMM for name in ("proj_stage", "powerpass_sweep", "gram_sweep",
-                                   "matmul_tn", "proj_stage_seeded")}
+                                   "matmul_tn", "proj_stage_seeded", "matmul_nn")}
 SOURCES["omega_fill"] = "src/repro_torch/kernels/csrc/rand.cuh"
 SOURCES.update({name: RECOMPUTE for name in FUSED})
 REPLACES = {
@@ -102,6 +124,7 @@ REPLACES = {
     "powerpass_sweep": "src/repro/kernels/powerpass.py:445",
     "gram_sweep": "src/repro/kernels/projgram.py:362",
     "matmul_tn": "src/repro/kernels/matmul.py:54",
+    "matmul_nn": "src/repro/kernels/matmul.py:34",
     "omega_fill": "src/repro/kernels/rand.py:85",
     "proj_stage_seeded": "src/repro/kernels/powerpass.py:423",
     "projgram": "src/repro/kernels/projgram.py:74",
@@ -497,6 +520,41 @@ def phase_recompute(dev, a, b) -> dict:
     return rows
 
 
+def phase_matmul_nn(dev, a) -> dict:
+    """matmul_nn at one microbatch of one model shard at Europarl width
+    (4096 × 2^18 · 2^18 × 2060) and at a ragged shape: against its plain
+    version, bitwise repeatable, bitwise ``proj_stage`` on the same
+    operands, with times."""
+    import torch
+
+    from repro_torch.kernels import matmul_nn, proj_stage, ref
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 19)
+    small = torch.randn((333, 9001), generator=g, device=dev)
+    x = a[:DIST_MICROBATCH, :a.shape[1] // 2].contiguous()
+    for xi, kt in [(small, 67), (x, 2060)]:  # the main path's shape last
+        q = torch.randn((xi.shape[1], kt), generator=g, device=dev)
+        err = check("matmul_nn", lambda: matmul_nn(xi, q), lambda: ref.matmul_nn_ref(xi, q),
+                    xi.shape[1])
+        same = torch.equal(matmul_nn(xi, q), proj_stage(xi, q))
+        print(f"[smoke] matmul_nn == proj_stage bitwise at {tuple(xi.shape)} → {kt}: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("matmul_nn is not proj_stage bitwise")
+    (M, K), N = x.shape, q.shape[1]
+    flops = 2 * M * K * N
+    t = {"ms": time_ms(lambda: matmul_nn(x, q), 3),
+         "plain_ms": time_ms(lambda: ref.matmul_nn_ref(x, q), 3),
+         "library_ms": time_ms(lambda: torch.matmul(x, q), 3)}
+    row = dict(max_abs_err=err, **bound(flops, 4 * (M * K + K * N + M * N)), **t)
+    print(f"[smoke] matmul_nn at {(M, K)} → {N}: kernel {t['ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}); {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
+          f"grid {-(-M // 128)} × {-(-N // 128)} tiles", flush=True)
+    return row
+
+
 def run_fit(argv, label):
     """One main-path run of the launcher: counters zeroed just before,
     read just after; returns (report, launches, peak GB, wall s)."""
@@ -694,6 +752,115 @@ def phase_fit_910(dev) -> dict:
             "projgram_seeded": launches_s["projgram_seeded"]}
 
 
+def run_dist(argv, label):
+    """One dist-mode run of the launcher; the ranks are fresh processes
+    whose launch counters start at 0.  Returns the report."""
+    import torch
+
+    from repro_torch.launch import cca_fit
+
+    torch.cuda.empty_cache()  # the ranks need the card; this process holds nothing
+    t0 = time.perf_counter()
+    rep = cca_fit.main(["--mode", "dist", "--device", "cuda", "--seed", str(SEED)] + argv)
+    print(f"[smoke] {label}: wall {time.perf_counter() - t0:.3f} s, backend {rep.backend}, "
+          f"ranks on {rep.devices}, peak memory per rank "
+          f"{[round(r['peak_gb'], 2) for r in rep.ranks]} GB", flush=True)
+    return rep
+
+
+def dist_launches(collective: str, nb: int) -> list:
+    """Entry-point launches per rank and pass (power, final) with nb
+    microbatches, under a real model axis (``ops`` docstring)."""
+    if collective == "unfused":
+        return [{"matmul_nn": 2 * nb, "matmul_tn": 2 * nb},
+                {"matmul_nn": 2 * nb, "matmul_tn": 3 * nb}]
+    return [{"proj_stage": 2 * nb, "powerpass_sweep": 2 * nb},
+            {"proj_stage": 2 * nb, "gram_sweep": 2 * nb, "powerpass_sweep": nb}]
+
+
+def dist_checks(reps: dict, nb: int, label: str) -> None:
+    """unfused ≡ fused bitwise (ρ, each rank's Xa and Xb), launches per
+    rank and pass, int8ef within the reference's tolerance of fused."""
+    import numpy as np
+
+    for coll in ("unfused", "fused", "fused-int8ef"):
+        for r in reps[coll].ranks:
+            if r["pass_launches"] != dist_launches(coll, nb):
+                raise AssertionError(f"{label} {coll} rank {r['rank']}: launches "
+                                     f"{r['pass_launches']}, want {dist_launches(coll, nb)}")
+    u, f, i8 = (reps[c] for c in ("unfused", "fused", "fused-int8ef"))
+    same = [np.array_equal(ru["rho"], rf["rho"]) and ru["digest"] == rf["digest"]
+            for ru, rf in zip(u.ranks, f.ranks)]
+    rho_f, rho_i8 = f.result.rho.numpy(), i8.result.rho.numpy()
+    close = bool(np.allclose(rho_i8, rho_f, rtol=0.05, atol=0.02))
+    print(f"[smoke] {label}: unfused == fused bitwise per rank (rho, Xa, Xb): {same}; "
+          f"fused-int8ef vs fused max |Δrho| {np.abs(rho_i8 - rho_f).max():.3e} "
+          f"(rtol 0.05, atol 0.02): {close}", flush=True)
+    if not all(same):
+        raise AssertionError(f"{label}: unfused and fused collectives differ")
+    if not close:
+        raise AssertionError(f"{label}: fused-int8ef is outside its tolerance")
+    for rep in (u, f, i8):
+        if not rho_ok(rep.result.rho):
+            raise AssertionError(f"{label}: rho leaves [0, 1]")
+
+
+def phase_dist(dev) -> dict:
+    """The sharded fit through ``cca_fit --mode dist``: at Europarl width
+    (one 8192-row chunk, p = 2000) two ranks on a 1 × 1 × 2 mesh share
+    the card over gloo, each collective on the kernels engine, then the
+    torch engine, then stream mode on the same chunk and Ω; then the
+    smoke width, centered, on four ranks (1 × 2 × 2), where the row and
+    the column sums are both real.  Returns matmul_nn's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import cca_fit
+
+    argv = ["--mesh", DIST_MESH, "--n-chunks", "1", "--microbatch", str(DIST_MICROBATCH)]
+    print(f"[smoke] dist: Europarl width, n = 8192 (one chunk), mesh {DIST_MESH}, "
+          f"microbatch {DIST_MICROBATCH}", flush=True)
+    reps = {c: run_dist(argv + ["--collective", c], f"dist {c}")
+            for c in ("unfused", "fused", "fused-int8ef")}
+    nb = 8192 // DIST_MICROBATCH
+    dist_checks(reps, nb, "dist Europarl")
+    rep_t = run_dist(argv + ["--engine", "torch"], "dist torch engine")
+    if any(r["pass_launches"] != [{}, {}] for r in rep_t.ranks):
+        raise AssertionError("the torch engine launched a kernel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep_s = cca_fit.main(["--device", "cuda", "--seed", str(SEED), "--n-chunks", "1"])
+    rho_s = rep_s.result.rho.double().cpu().numpy()
+    del rep_s
+    rho_f = reps["fused"].result.rho.numpy()
+    gap_t = float(np.abs(rho_f - rep_t.result.rho.numpy()).max())
+    gap_s = float(np.abs(rho_f - rho_s).max())
+    print(f"[smoke] dist Europarl: max |rho_kernels - rho_torch| = {gap_t:.3e}, max "
+          f"|rho_dist - rho_stream| = {gap_s:.3e} (limits 1e-3); sum rho {rho_f.sum():.6f}, "
+          f"stream {rho_s.sum():.6f}; lam_a {reps['fused'].result.diagnostics['lam_a']:.6g}",
+          flush=True)
+    if not gap_t <= 1e-3 or not gap_s <= 1e-3:
+        raise AssertionError("dist Europarl: the fit disagrees with the torch engine or "
+                             "with stream mode")
+
+    smoke = ["--smoke", "--center", "--ranks", "4", "--mesh", "1,2,2"]
+    print("[smoke] dist: smoke width, centered, 4 ranks on 1 × 2 × 2", flush=True)
+    sreps = {c: run_dist(smoke + ["--collective", c], f"dist smoke {c}")
+             for c in ("unfused", "fused", "fused-int8ef")}
+    dist_checks(sreps, 1, "dist smoke")
+    torch.cuda.reset_peak_memory_stats()
+    rep_ss = cca_fit.main(["--smoke", "--center", "--device", "cuda", "--seed", str(SEED)])
+    gap = float(np.abs(sreps["fused"].result.rho.numpy()
+                       - rep_ss.result.rho.double().cpu().numpy()).max())
+    print(f"[smoke] dist smoke: max |rho_dist - rho_stream| = {gap:.3e} (limit 1e-3)",
+          flush=True)
+    if not gap <= 1e-3:
+        raise AssertionError("dist smoke: the fit disagrees with stream mode")
+    return {"matmul_nn": sum(r["pass_launches"][0]["matmul_nn"]
+                             + r["pass_launches"][1]["matmul_nn"]
+                             for r in reps["unfused"].ranks)}
+
+
 def main() -> int:
     try:
         import torch
@@ -743,11 +910,14 @@ def main() -> int:
     rows["proj_stage_seeded"] = phase_seeded(dev, b)
     torch.cuda.empty_cache()
     rows.update(phase_recompute(dev, a, b))
+    torch.cuda.empty_cache()
+    rows["matmul_nn"] = phase_matmul_nn(dev, a)
     del a, b
     torch.cuda.empty_cache()
     launches = phase_smoke_fits(dev)
     launches.update(phase_fit(dev))
     launches.update(phase_fit_910(dev))
+    launches.update(phase_dist(dev))
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}

@@ -32,15 +32,21 @@ def tri_solve_right(Y: torch.Tensor, L: torch.Tensor, *, trans: bool = False) ->
     return torch.linalg.solve_triangular(L.T, Y, upper=True, left=False)
 
 
-def cholesky_qr(Y: torch.Tensor, jitter: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+def _gram(M: torch.Tensor) -> torch.Tensor:
+    return M.T @ M
+
+
+def cholesky_qr(Y: torch.Tensor, jitter: float = 0.0, *,
+                gram=_gram) -> tuple[torch.Tensor, torch.Tensor]:
     """One round of CholeskyQR: Q = Y L⁻ᵀ with L = chol(YᵀY); returns
-    (Q, R) with R = Lᵀ, so Q R = Y and QᵀQ = I.
+    (Q, R) with R = Lᵀ, so Q R = Y and QᵀQ = I.  ``gram(Y)`` forms YᵀY
+    (the sharded fit sums it over the ranks that hold Y's rows).
 
     The reference's code computes Y L⁻¹ (its docstring says Y L⁻ᵀ), which
     satisfies neither and only removes the first-order error of a Q with
     YᵀY ≈ I; the port computes what the docstring says.
     """
-    L = chol_psd(sym(Y.T @ Y), jitter)
+    L = chol_psd(sym(gram(Y)), jitter)
     return tri_solve_right(Y, L, trans=True), L.T
 
 
@@ -54,9 +60,10 @@ def eigh_whiten(Y: torch.Tensor, G: torch.Tensor, rel_eps: float = 1e-12) -> tor
     return Q.mul_(1.0 / torch.sqrt(w))  # in place: Q is a fresh (d, k̃) product
 
 
-def orth(Y: torch.Tensor) -> torch.Tensor:
+def orth(Y: torch.Tensor, *, gram=_gram) -> torch.Tensor:
     """Paper's ``orth``: an eigh-whitened first round plus one CholeskyQR
-    cleanup round.
+    cleanup round.  ``gram(M)`` forms MᵀM for both rounds (as in
+    :func:`cholesky_qr`).
 
     Two departures from the reference, which breaks at Europarl width:
     power iteration squares κ(Y), and on the planted data κ(Y) reaches
@@ -74,9 +81,9 @@ def orth(Y: torch.Tensor) -> torch.Tensor:
     the layout the data-pass kernels take.
     """
     Y64 = Y.to(torch.float64)
-    Q = eigh_whiten(Y64, Y64.T @ Y64).to(torch.float32)
+    Q = eigh_whiten(Y64, gram(Y64)).to(torch.float32)
     del Y64  # 8.6 GB at Europarl width
-    Q, _ = cholesky_qr(Q, 0.0)
+    Q, _ = cholesky_qr(Q, 0.0, gram=gram)
     return Q.to(Y.dtype).contiguous()
 
 

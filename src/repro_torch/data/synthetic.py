@@ -119,13 +119,20 @@ class DevicePlantedChunks:
         X.mul_(self.noise / math.sqrt(d))
         return X.addmm_(Z, W)
 
-    def get_chunk(self, idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def get_chunk(self, idx: int, cols_a: slice = slice(None),
+                  cols_b: slice = slice(None)) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Chunk ``idx``; ``cols_a`` / ``cols_b`` keep only those feature
+        columns of each view (a sharded rank's block), each copied out
+        before the next view is made, so at most one whole view exists."""
         lo = idx * self.chunk
         m = min(lo + self.chunk, self.n) - lo
         g = self._generator(_chunk_seed(self.seed, idx))
         Z = torch.randn((m, self.rank), generator=g, device=self.device) * self.scales
         A = self._view(g, Z, self.Wa, self.da)
-        return A, self._view(g, Z, self.Wb, self.db)
+        if cols_a != slice(None):
+            A = A[:, cols_a].contiguous()
+        B = self._view(g, Z, self.Wb, self.db)
+        return A, B if cols_b == slice(None) else B[:, cols_b].contiguous()
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         for i in range(self.n_chunks):

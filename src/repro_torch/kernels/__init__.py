@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, with their plain versions.
 
-Ten entry points, one launch counter each, over the CUDA kernels in
+Eleven entry points, one launch counter each, over the CUDA kernels in
 ``csrc/gemm_f32.cu``, ``csrc/recompute_f32.cu`` (both on the tile of
 ``csrc/gemm.cuh``) and ``csrc/rand.cuh``:
 
@@ -11,6 +11,7 @@ proj_stage                       kernels/powerpass.py ``_proj_stage_kernel``
 powerpass_sweep                  kernels/powerpass.py ``_powerpass_sweep_kernel``
 gram_sweep                       kernels/projgram.py ``_gram_sweep_kernel``
 matmul_tn                        kernels/matmul.py ``_mm_tn_kernel``
+matmul_nn                        kernels/matmul.py ``_mm_nn_kernel``
 omega_fill                       kernels/rand.py ``normal_tile``
 proj_stage_seeded                kernels/powerpass.py ``_proj_stage_seeded_kernel``
 projgram (recompute)             kernels/projgram.py ``_projgram_kernel``
@@ -25,7 +26,7 @@ Under the staged schedule the fused entry points launch the staged pair
 and count there; :mod:`.plan` and the ``choose_*_schedule`` rules decide.
 """
 
-from .matmul import matmul_tn
+from .matmul import matmul_nn, matmul_tn
 from .ops import (chunk_cost, final_pass_chunk, final_pass_chunk_seeded, launch_counts,
                   power_pass_chunk, power_pass_chunk_seeded, reset_launch_counts)
 from .powerpass import (choose_powerpass_schedule, power_project_accumulate,
@@ -43,6 +44,7 @@ __all__ = [
     "final_pass_chunk_seeded",
     "gram_sweep",
     "launch_counts",
+    "matmul_nn",
     "matmul_tn",
     "omega_fill",
     "omega_seeds",

@@ -1,9 +1,18 @@
-"""The f32 GEMM launchers, the TN product ``matmul_tn``, and the
-schedule crossover.
+"""The f32 GEMM launchers, the plain products ``matmul_nn`` and
+``matmul_tn``, and the schedule crossover.
 
 ``matmul_tn`` (O = Xᵀ·Y) is the port of ``repro/kernels/matmul.py``
 ``_mm_tn_kernel`` as ``pallas_matmul(transpose_lhs=True)`` launches it;
 on the main path it computes the final pass's cross term F = PaᵀPb.
+``matmul_nn`` (O = X·Q) is the port of ``_mm_nn_kernel``, the plain
+``pallas_matmul``; the sharded fit's unfused collective
+(``ops.project``) runs it.  The TPU kernel blocks (i, j, k) with a VMEM
+accumulator carried across the k steps; on Hopper the same function is
+``gemm_nn_f32``, which contracts each 128 × 128 output tile's whole K
+range in one block (one ascending FMA chain per element), so
+``matmul_nn`` is bitwise ``powerpass.proj_stage`` on the same operands
+and counts its launches under its own name.  It is bound by f32
+operations (2·M·K·N FLOPs against 4·(MK + KN + MN) bytes).
 :func:`gemm_nn`, :func:`gemm_nn_seeded`, :func:`gemm_tn` and
 :func:`recompute` are the checked launchers every GEMM entry point of the
 package goes through (kernel sources: ``csrc/gemm_f32.cu``,
@@ -151,3 +160,10 @@ def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if on_cpu(x, y):
         return ref.matmul_tn_ref(x, y)
     return gemm_tn("matmul_tn", x, y)
+
+
+def matmul_nn(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """O = x·q: x (M, K), q (K, N) → (M, N) f32."""
+    if on_cpu(x, q):
+        return ref.matmul_nn_ref(x, q)
+    return gemm_nn("matmul_nn", x, q)

@@ -27,6 +27,27 @@ seeded entry-point launch issues 2·⌈d / 4096⌉ CUDA launches (an
 fused one under recompute); those are not ``omega_fill`` entry-point
 launches.  :func:`chunk_cost` reports the modelled FLOPs, bytes and the
 resolved schedule of a chunk from the same launch plans the rule reads.
+
+The sharded fit (``core/rcca_dist.py``) calls the single products below
+when the mesh's model axis shards the features; a mesh without one takes
+:func:`power_pass_chunk` / :func:`final_pass_chunk` as above.  Per rank,
+microbatch and pass:
+
+======================  =================================  =================================
+collective              power pass                         final pass
+======================  =================================  =================================
+``unfused``             2 ``matmul_nn`` (:func:`project`)  2 ``matmul_nn`` + 3 ``matmul_tn``
+                        + 2 ``matmul_tn``
+                        (:func:`accumulate_tn`)
+``fused``,              2 ``proj_stage``                   2 ``proj_stage`` +
+``fused-int8ef``        (:func:`stage_project`) +          2 ``gram_sweep``
+                        2 ``powerpass_sweep``              (:func:`gram_accumulate`) +
+                        (:func:`sweep_accumulate`)         1 ``powerpass_sweep``
+======================  =================================  =================================
+
+``matmul_nn`` and ``proj_stage`` run the same CUDA kernel, as do
+``matmul_tn``, ``powerpass_sweep`` and ``gram_sweep``, so the unfused and
+fused collectives give the same bits.
 """
 
 from __future__ import annotations
@@ -34,10 +55,21 @@ from __future__ import annotations
 import functools
 
 from . import build, plan
-from .matmul import matmul_tn
+from .matmul import matmul_nn, matmul_tn
 from .powerpass import (choose_powerpass_schedule, power_project_accumulate,
-                        power_project_accumulate_seeded)
-from .projgram import choose_projgram_schedule, projgram, projgram_seeded
+                        power_project_accumulate_seeded, powerpass_sweep, proj_stage,
+                        proj_stage_seeded)
+from .projgram import choose_projgram_schedule, gram_sweep, projgram, projgram_seeded
+
+
+def project(x, q):
+    """P = X·Q, the projection half of the unfused pair (``matmul_nn``)."""
+    return matmul_nn(x, q)
+
+
+def accumulate_tn(x, p):
+    """ΔY = Xᵀ·P, the accumulation half of the unfused pair (``matmul_tn``)."""
+    return matmul_tn(x, p)
 
 
 def power_pass_chunk(a, b, Qa, Qb, *, schedule=None, out=None):
@@ -76,6 +108,29 @@ def final_pass_chunk_seeded(a, b, seed_a, seed_b, *, kt: int, schedule=None):
     pa, Ca = projgram_seeded(a, seed_a, kt, schedule=schedule)
     pb, Cb = projgram_seeded(b, seed_b, kt, schedule=schedule)
     return Ca, Cb, matmul_tn(pa, pb)
+
+
+def stage_project(x, q):
+    """The local feature shard's partial P = X_l·Q_l in f32
+    (``proj_stage``); the sharded fit sums it over the model axis."""
+    return proj_stage(x, q)
+
+
+def stage_project_seeded(x, seed, *, kt: int):
+    """:func:`stage_project` against Ω(seed) made on the card slab by slab
+    (``proj_stage_seeded``)."""
+    return proj_stage_seeded(x, seed, kt)
+
+
+def sweep_accumulate(x, p, *, out=None):
+    """ΔY = Xᵀ·P over the summed P (``powerpass_sweep``); ``out`` adds it
+    into an f32 accumulator in place and returns that."""
+    return powerpass_sweep(x, p, out=out)
+
+
+def gram_accumulate(p):
+    """ΔC = Pᵀ·P over the summed P (``gram_sweep``)."""
+    return gram_sweep(p)
 
 
 def _power_view(n, d_out, d_in, kt, seeded, schedule):

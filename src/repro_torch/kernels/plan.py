@@ -172,6 +172,11 @@ def plan_gram_sweep(n: int, kt: int) -> tuple[LaunchPlan, ...]:
     return (gemm_tn(kt, kt, n),)
 
 
+def plan_matmul_nn(M: int, K: int, N: int) -> tuple[LaunchPlan, ...]:
+    """O (M×N) = X (M×K)·Q (K×N): the NN kernel, as :func:`plan_proj_stage`."""
+    return (gemm_nn(M, N, K),)
+
+
 def plan_matmul_tn(K: int, M: int, N: int) -> tuple[LaunchPlan, ...]:
     return (gemm_tn(M, N, K),)
 

@@ -38,6 +38,11 @@ def gram_sweep_ref(p: torch.Tensor) -> torch.Tensor:
     return p.T @ p
 
 
+def matmul_nn_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """O = x · q in f32 (``_mm_nn_kernel``)."""
+    return x.to(f32) @ q.to(f32)
+
+
 def matmul_tn_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """O = xᵀ · y in f32 (``_mm_tn_kernel``)."""
     return x.to(f32).T @ y.to(f32)
