@@ -8,7 +8,10 @@ Phases, each of which fails the run by raising:
 1. device — needs CUDA; prints the card's name and power limit and the
    host's memory (the merge stack's closed groups live there); turns
    TF32 off for every f32 product;
-2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (three ``nvcc`` started together) and counts the HMMA instructions of
+   each kernel in ``cuobjdump -sass``: the bf16 tensor-core kernels must
+   issue them, the f32 ones none;
 3. kernels — each of the four GEMM entry points against its plain
    PyTorch version on the card, at the main path's shapes (8192 rows,
    d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
@@ -66,7 +69,26 @@ Phases, each of which fails the run by raising:
    memory printed; then the smoke width, centered, on four ranks
    (1 × 2 × 2), where the row and the column sums are both real.  The
    ranks are fresh processes, so their launch counters start at 0 in
-   each run, and each rank reports its own.
+   each run, and each rank reports its own;
+10. bf16 kernels — the eight bf16-operand forms (``proj_stage[bf16]``,
+    ``matmul_nn[bf16]``, ``powerpass_sweep[bf16]`` and ``[bf16,f32]``,
+    ``matmul_tn[bf16]``, ``gram_sweep[bf16]``, ``projgram[bf16]``,
+    ``power_project_accumulate[bf16]``) at four ragged shapes, then at
+    the sharded fit's shapes (one Europarl chunk cast to bf16): each
+    against its plain version (upcast, f32 products) within 4·√K·u, two
+    launches bitwise, and bitwise matmul_nn ≡ proj_stage, matmul_tn ≡
+    powerpass_sweep, gram_sweep(P) ≡ matmul_tn(P, P), recompute ≡ staged
+    and ``out=`` ≡ acc + ΔY; times beside the plain version, a bf16
+    ``torch.matmul`` (yardstick only) and the bound (tensor-core FLOPs at
+    989 TFLOP/s, f32 ones at 67);
+11. dist bf16 — ``cca_fit --mode dist --compute-dtype bfloat16``: at
+    Europarl width on 1 × 1 × 2 (``unfused`` ≡ ``fused`` bitwise per rank,
+    the bf16 launches per rank and pass, |Δρ| ≤ 1e-3 against the torch
+    engine, |ρ_bf16 − ρ_f32| printed) and on 1 × 1 × 1 (the chunk updates:
+    ``proj_stage[bf16]`` and ``powerpass_sweep[bf16,f32]``; ρ within 1e-3
+    of 1 × 1 × 2); then the smoke width, centered, on four ranks: 1 × 2 × 2
+    under all three collectives and 1 × 4 × 1, where both passes
+    recompute (``power_project_accumulate[bf16]``, ``projgram[bf16]``).
 
 Every fit resets the launch counters just before it and reads them just
 after; the total wall time is printed at the end.
@@ -88,6 +110,7 @@ import time
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
 # int32 on the CUDA cores: 64 lanes per SM and clock against f32's 128,
 # so half the f32 FMA issue rate (33.5e12 FMA/s)
 INT32_PEAK_OPS = 16.75e12
@@ -112,6 +135,7 @@ DIST_MICROBATCH = 4096
 DIST_MESH = "1,1,2"
 
 GEMM = "src/repro_torch/kernels/csrc/gemm_f32.cu"
+GEMM_BF16 = "src/repro_torch/kernels/csrc/gemm_bf16.cu"
 RECOMPUTE = "src/repro_torch/kernels/csrc/recompute_f32.cu"
 FUSED = ("projgram", "projgram_seeded", "power_project_accumulate",
          "power_project_accumulate_seeded")
@@ -132,6 +156,13 @@ REPLACES = {
     "power_project_accumulate": "src/repro/kernels/powerpass.py:102",
     "power_project_accumulate_seeded": "src/repro/kernels/powerpass.py:261",
 }
+# the bf16-operand forms: each row's TPU kernel is its f32 row's
+BF16_FORMS = ("proj_stage[bf16]", "matmul_nn[bf16]", "powerpass_sweep[bf16]",
+              "matmul_tn[bf16]", "gram_sweep[bf16]", "powerpass_sweep[bf16,f32]",
+              "projgram[bf16]", "power_project_accumulate[bf16]")
+SOURCES.update({name: RECOMPUTE if name.startswith(("projgram", "power_project")) else GEMM_BF16
+                for name in BF16_FORMS})
+REPLACES.update({name: REPLACES[name.split("[")[0]] for name in BF16_FORMS})
 
 
 def mem_total() -> str:
@@ -189,10 +220,11 @@ def cases(a, b, Qa, Qb):
     }
 
 
-def bound(flops: float, nbytes: float, int_ops: float = 0.0) -> dict:
+def bound(flops: float, nbytes: float, int_ops: float = 0.0, tc_flops: float = 0.0) -> dict:
     """The least time for the work: operations (f32 FLOPs and int32 ops
-    both take issue slots) against bytes moved once."""
-    t_ops = flops / F32_PEAK_FLOPS + int_ops / INT32_PEAK_OPS
+    both take issue slots; bf16 tensor-core FLOPs at their own rate, the
+    times added) against bytes moved once."""
+    t_ops = flops / F32_PEAK_FLOPS + int_ops / INT32_PEAK_OPS + tc_flops / BF16_PEAK_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -555,6 +587,174 @@ def phase_matmul_nn(dev, a) -> dict:
     return row
 
 
+def check_form(name, call, plain, Ks, pair=None, pair_name=None) -> float:
+    """A bf16 form (``call`` returns a tuple of outputs) against its plain
+    version per output (4·√K·u of the plain output's largest magnitude,
+    the f32 rows' bound), two launches bitwise, and, where given, BITWISE
+    against ``pair`` (the entry point the form must equal); returns the
+    largest abs error."""
+    import torch
+
+    out, again, want = call(), call(), plain()
+    other = pair() if pair is not None else None
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (o, g, w, K) in enumerate(zip(out, again, want, Ks)):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}[{i}]: non-finite output")
+        err = float((o - w).abs().max())
+        scale = float(w.abs().max())
+        tol = 4 * math.sqrt(K) * U * scale
+        repeat = torch.equal(o, g)
+        same = True if other is None else torch.equal(o, other[i])
+        print(f"[smoke] {name}[{i}] {tuple(o.shape)} K={K}: max_abs_err={err:.3e} "
+              f"max_rel_err={err / scale:.3e} (tol {tol / scale:.3e}) repeat_bitwise={repeat}"
+              + ("" if other is None else f" == {pair_name} bitwise: {same}"), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        if not repeat:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        if not same:
+            raise AssertionError(f"{name}: not {pair_name} bitwise")
+        worst = max(worst, err)
+    return worst
+
+
+def bf16_forms(x, q, a, xm, qm, q2, an):
+    """The eight bf16 forms on their operands, all bf16: the stage's x (n,
+    d) and q (d, k̃); the sweep's A, a (n, da), against the f32 P =
+    x·q; one model shard's microbatch xm (nm, dm) and qm (dm, k̃), whose
+    P pm = xm·qm rounded to bf16 the sharded sweeps take; the recompute
+    sketch q2 (d, k̃₂) with the narrow A an (n, da₂).  Per form: (kernel
+    call, plain call, library call or None, K per output, tensor-core
+    FLOPs, f32 FLOPs, bytes, bitwise pair or None, its name), each call
+    returning a tuple.  The Gram counts its k̃(k̃+1)/2 distinct entries."""
+    import torch
+
+    from repro_torch.kernels import (gram_sweep, matmul_nn, matmul_tn,
+                                     power_project_accumulate, powerpass_sweep, proj_stage,
+                                     projgram, ref)
+
+    (n, d), kt, da = x.shape, q.shape[1], a.shape[1]
+    (nm, dm), kt2, da2 = xm.shape, q2.shape[1], an.shape[1]
+    p32 = proj_stage(x, q)
+    pm = proj_stage(xm, qm).to(torch.bfloat16)
+    return {
+        "proj_stage[bf16]": (lambda: (proj_stage(x, q),), lambda: (ref.proj_stage_ref(x, q),),
+                             lambda: torch.matmul(x, q), (d,), 2 * n * d * kt, 0,
+                             2 * (n * d + d * kt) + 4 * n * kt, None, None),
+        "matmul_nn[bf16]": (lambda: (matmul_nn(xm, qm),), lambda: (ref.matmul_nn_ref(xm, qm),),
+                            lambda: torch.matmul(xm, qm), (dm,), 2 * nm * dm * kt, 0,
+                            2 * (nm * dm + dm * kt) + 4 * nm * kt,
+                            lambda: (proj_stage(xm, qm),), "proj_stage[bf16]"),
+        "powerpass_sweep[bf16]": (lambda: (powerpass_sweep(xm, pm),),
+                                  lambda: (ref.powerpass_sweep_ref(xm, pm),),
+                                  lambda: torch.matmul(xm.T, pm), (nm,), 2 * nm * dm * kt, 0,
+                                  2 * (nm * dm + nm * kt) + 4 * dm * kt, None, None),
+        "matmul_tn[bf16]": (lambda: (matmul_tn(xm, pm),), lambda: (ref.matmul_tn_ref(xm, pm),),
+                            lambda: torch.matmul(xm.T, pm), (nm,), 2 * nm * dm * kt, 0,
+                            2 * (nm * dm + nm * kt) + 4 * dm * kt,
+                            lambda: (powerpass_sweep(xm, pm),), "powerpass_sweep[bf16]"),
+        "gram_sweep[bf16]": (lambda: (gram_sweep(pm),), lambda: (ref.gram_sweep_ref(pm),),
+                             lambda: torch.matmul(pm.T, pm), (nm,), nm * kt * (kt + 1), 0,
+                             2 * nm * kt + 4 * (kt * (kt + 1) // 2),
+                             lambda: (matmul_tn(pm, pm),), "matmul_tn[bf16](P, P)"),
+        "powerpass_sweep[bf16,f32]": (lambda: (powerpass_sweep(a, p32),),
+                                      lambda: (ref.powerpass_sweep_ref(a, p32),), None, (n,),
+                                      0, 2 * n * da * kt, 2 * n * da + 4 * (n * kt + da * kt),
+                                      None, None),
+        "projgram[bf16]": (lambda: projgram(x, q2, schedule="recompute"),
+                           lambda: ref.projgram_ref(x, q2), None, (d, d + n),
+                           2 * n * d * kt2, n * kt2 * (kt2 + 1),
+                           2 * (n * d + d * kt2) + 4 * (n * kt2 + kt2 * (kt2 + 1) // 2),
+                           lambda: projgram(x, q2, schedule="staged"), "its staged pair"),
+        "power_project_accumulate[bf16]": (
+            lambda: (power_project_accumulate(an, x, q2, schedule="recompute"),),
+            lambda: (ref.power_project_accumulate_ref(an, x, q2),),
+            lambda: torch.linalg.multi_dot([an.T, x, q2]), (d + n,), 2 * n * d * kt2,
+            2 * n * da2 * kt2, 2 * (n * d + d * kt2 + n * da2) + 4 * da2 * kt2,
+            lambda: (power_project_accumulate(an, x, q2, schedule="staged"),),
+            "its staged pair"),
+    }, p32, pm
+
+
+def bf16_out_contract(a, p, label) -> None:
+    """``powerpass_sweep(out=acc)`` is acc + ΔY bitwise, for this P dtype."""
+    import torch
+
+    from repro_torch.kernels import powerpass_sweep
+
+    g = torch.Generator(device=a.device)
+    g.manual_seed(SEED + 23)
+    acc0 = torch.randn((a.shape[1], p.shape[1]), generator=g, device=a.device)
+    same = torch.equal(powerpass_sweep(a, p, out=acc0.clone()), acc0 + powerpass_sweep(a, p))
+    print(f"[smoke] {label}(out=acc) == acc + ΔY bitwise: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}(out=) is not acc + ΔY bitwise")
+
+
+def phase_bf16_kernels(dev, a16, b16) -> dict:
+    """The bf16-operand forms (``csrc/gemm_bf16.cu``; the fused ones in
+    ``csrc/recompute_f32.cu``) at three ragged shapes, then at the sharded
+    fit's shapes with times: each against its plain version (upcast, f32
+    products) within 4·√K·u, two launches bitwise, and the in-port
+    contracts bitwise — matmul_nn ≡ proj_stage, matmul_tn ≡
+    powerpass_sweep (bf16 P), gram_sweep(P) ≡ matmul_tn(P, P), recompute ≡
+    staged, ``out=`` ≡ acc + ΔY.  ``a16``, ``b16``: one Europarl chunk in
+    bf16.  The library yardstick is ``torch.matmul`` on the same bf16
+    operands, which writes bf16."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.core.rcca import draw_omega
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 29)
+    # (n, d, k̃, da): odd widths (rows 2-byte aligned), k̃ = 970 (4-byte),
+    # k̃ = 2060 (8-byte), and a contraction shorter than one stage
+    for n, d, kt, da in [(333, 517, 67, 301), (200, 1000, 970, 129), (130, 4100, 2060, 517),
+                         (5, 37, 3, 9)]:
+        x, q, a = (torch.randn(shape, generator=g, device=dev).to(bf16)
+                   for shape in ((n, d), (d, kt), (n, da)))
+        forms, p32, pm = bf16_forms(x, q, a, x, q, q, a)
+        print(f"[smoke] bf16 forms at (n, d, k̃, da) = {(n, d, kt, da)}", flush=True)
+        for name, (call, plain, _, Ks, _, _, _, pair, pair_name) in forms.items():
+            check_form(name, call, plain, Ks, pair, pair_name)
+        bf16_out_contract(a, p32, "powerpass_sweep[bf16,f32]")
+        bf16_out_contract(x, pm, "powerpass_sweep[bf16]")
+        del x, q, a, forms, p32, pm
+
+    wl = config()
+    Qa, Qb = draw_omega(SEED, wl.da, wl.db, wl.rcca, device=dev)
+    q, qm = Qb.to(bf16), Qa[:wl.da // 2].to(bf16)
+    del Qa, Qb
+    q2 = torch.randn((b16.shape[1], KT_910), generator=g, device=dev).to(bf16)
+    xm = a16[:DIST_MICROBATCH, :a16.shape[1] // 2].contiguous()
+    an = a16[:, :DA_NARROW].contiguous()
+    forms, p32, pm = bf16_forms(b16, q, a16, xm, qm, q2, an)
+    bf16_out_contract(a16, p32, "powerpass_sweep[bf16,f32]")
+    bf16_out_contract(xm, pm, "powerpass_sweep[bf16]")
+    rows = {}
+    for name, (call, plain, lib, Ks, tc_flops, flops, nbytes, pair, pair_name) in forms.items():
+        err = check_form(name, call, plain, Ks, pair, pair_name)
+        torch.cuda.empty_cache()
+        heavy = tc_flops + flops > 1e12
+        reps = 3 if heavy else 10
+        t = {"ms": time_ms(call, reps), "plain_ms": time_ms(plain, reps),
+             "library_ms": None if lib is None else time_ms(lib, reps)}
+        if pair_name == "its staged pair":
+            t["staged_ms"] = time_ms(pair, reps)
+        rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, tc_flops=tc_flops), **t)
+        lib_txt = "none" if lib is None else f"{t['library_ms']:.3f} ms (bf16 out)"
+        staged_txt = f", staged pair {t['staged_ms']:.3f} ms" if "staged_ms" in t else ""
+        print(f"[smoke] {name}: kernel {t['ms']:.3f} ms{staged_txt}, plain "
+              f"{t['plain_ms']:.3f} ms, library {lib_txt}, bound {rows[name]['bound_ms']:.3f} "
+              f"ms ({rows[name]['bound_by']}); {(tc_flops + flops) / t['ms'] / 1e9:.1f} TFLOP/s",
+              flush=True)
+    return rows
+
+
 def run_fit(argv, label):
     """One main-path run of the launcher: counters zeroed just before,
     read just after; returns (report, launches, peak GB, wall s)."""
@@ -768,26 +968,33 @@ def run_dist(argv, label):
     return rep
 
 
-def dist_launches(collective: str, nb: int) -> list:
+def dist_launches(collective: str, nb: int, bf16: bool = False) -> list:
     """Entry-point launches per rank and pass (power, final) with nb
-    microbatches, under a real model axis (``ops`` docstring)."""
+    microbatches, under a real model axis (``ops`` docstring).  In bf16
+    every product is the bf16 form, but int8ef's decoded sum of P is f32:
+    its sweeps take an f32 P."""
+    t = "[bf16]" if bf16 else ""
     if collective == "unfused":
-        return [{"matmul_nn": 2 * nb, "matmul_tn": 2 * nb},
-                {"matmul_nn": 2 * nb, "matmul_tn": 3 * nb}]
-    return [{"proj_stage": 2 * nb, "powerpass_sweep": 2 * nb},
-            {"proj_stage": 2 * nb, "gram_sweep": 2 * nb, "powerpass_sweep": nb}]
+        return [{f"matmul_nn{t}": 2 * nb, f"matmul_tn{t}": 2 * nb},
+                {f"matmul_nn{t}": 2 * nb, f"matmul_tn{t}": 3 * nb}]
+    if bf16 and collective == "fused-int8ef":
+        return [{"proj_stage[bf16]": 2 * nb, "powerpass_sweep[bf16,f32]": 2 * nb},
+                {"proj_stage[bf16]": 2 * nb, "gram_sweep": 2 * nb, "powerpass_sweep": nb}]
+    return [{f"proj_stage{t}": 2 * nb, f"powerpass_sweep{t}": 2 * nb},
+            {f"proj_stage{t}": 2 * nb, f"gram_sweep{t}": 2 * nb, f"powerpass_sweep{t}": nb}]
 
 
-def dist_checks(reps: dict, nb: int, label: str) -> None:
+def dist_checks(reps: dict, nb: int, label: str, bf16: bool = False) -> None:
     """unfused ≡ fused bitwise (ρ, each rank's Xa and Xb), launches per
     rank and pass, int8ef within the reference's tolerance of fused."""
     import numpy as np
 
     for coll in ("unfused", "fused", "fused-int8ef"):
         for r in reps[coll].ranks:
-            if r["pass_launches"] != dist_launches(coll, nb):
+            want = dist_launches(coll, nb, bf16)
+            if r["pass_launches"] != want:
                 raise AssertionError(f"{label} {coll} rank {r['rank']}: launches "
-                                     f"{r['pass_launches']}, want {dist_launches(coll, nb)}")
+                                     f"{r['pass_launches']}, want {want}")
     u, f, i8 = (reps[c] for c in ("unfused", "fused", "fused-int8ef"))
     same = [np.array_equal(ru["rho"], rf["rho"]) and ru["digest"] == rf["digest"]
             for ru, rf in zip(u.ranks, f.ranks)]
@@ -811,7 +1018,8 @@ def phase_dist(dev) -> dict:
     the card over gloo, each collective on the kernels engine, then the
     torch engine, then stream mode on the same chunk and Ω; then the
     smoke width, centered, on four ranks (1 × 2 × 2), where the row and
-    the column sums are both real.  Returns matmul_nn's launches."""
+    the column sums are both real.  Returns matmul_nn's launches and the
+    fused run's ρ."""
     import numpy as np
     import torch
 
@@ -858,7 +1066,131 @@ def phase_dist(dev) -> dict:
         raise AssertionError("dist smoke: the fit disagrees with stream mode")
     return {"matmul_nn": sum(r["pass_launches"][0]["matmul_nn"]
                              + r["pass_launches"][1]["matmul_nn"]
-                             for r in reps["unfused"].ranks)}
+                             for r in reps["unfused"].ranks)}, rho_f
+
+
+def same_per_rank(a, b) -> list:
+    """ρ and each rank's Xa, Xb digests equal, rank by rank."""
+    import numpy as np
+
+    return [np.array_equal(ra["rho"], rb["rho"]) and ra["digest"] == rb["digest"]
+            for ra, rb in zip(a.ranks, b.ranks)]
+
+
+def launches_of(reps, names) -> dict:
+    """Each name's launches, summed over the ranks and passes of ``reps``."""
+    return {n: sum(p.get(n, 0) for rep in reps for r in rep.ranks for p in r["pass_launches"])
+            for n in names}
+
+
+def phase_dist_bf16(dev, rho_f32) -> dict:
+    """The sharded fit at ``--compute-dtype bfloat16``: at Europarl width
+    (one chunk, microbatch 4096) two ranks on 1 × 1 × 2 sharing the card,
+    ``unfused`` and ``fused`` on the kernels engine (bitwise equal per
+    rank; the bf16 launches of the ``ops`` table), then the torch engine
+    (|Δρ| ≤ 1e-3); one rank on 1 × 1 × 1, where the chunk updates run
+    ``proj_stage[bf16]`` and ``powerpass_sweep[bf16,f32]`` (ρ within 1e-3
+    of the two-rank fused run); then the smoke width on four ranks,
+    centered: 1 × 2 × 2 under all three collectives and 1 × 4 × 1, where
+    both passes recompute (ρ within 1e-3 of 1 × 2 × 2 fused).  ``rho_f32``:
+    the f32 fused run's ρ at Europarl width, for |ρ_bf16 − ρ_f32|.
+    Returns each bf16 form's launches in the runs that drive it."""
+    import numpy as np
+
+    bf16 = ["--compute-dtype", "bfloat16"]
+    argv = ["--mesh", DIST_MESH, "--n-chunks", "1", "--microbatch", str(DIST_MICROBATCH)] + bf16
+    print(f"[smoke] dist bf16: Europarl width, n = 8192 (one chunk), mesh {DIST_MESH}, "
+          f"microbatch {DIST_MICROBATCH}", flush=True)
+    reps = {c: run_dist(argv + ["--collective", c], f"dist bf16 {c}")
+            for c in ("unfused", "fused")}
+    nb = 8192 // DIST_MICROBATCH
+    for coll, rep in reps.items():
+        for r in rep.ranks:
+            want = dist_launches(coll, nb, bf16=True)
+            if r["pass_launches"] != want or r["compute_dtype"] != "bfloat16":
+                raise AssertionError(f"dist bf16 {coll} rank {r['rank']}: launches "
+                                     f"{r['pass_launches']}, want {want}")
+    same = same_per_rank(reps["unfused"], reps["fused"])
+    rep_t = run_dist(argv + ["--engine", "torch"], "dist bf16 torch engine")
+    if any(r["pass_launches"] != [{}, {}] for r in rep_t.ranks):
+        raise AssertionError("the torch engine launched a kernel")
+    rep_1 = run_dist(["--mesh", "1,1,1", "--n-chunks", "1", "--microbatch",
+                      str(DIST_MICROBATCH)] + bf16, "dist bf16 1 x 1 x 1")
+    want_1 = [{"proj_stage[bf16]": 2 * nb, "powerpass_sweep[bf16,f32]": 2 * nb},
+              {"proj_stage[bf16]": 2 * nb, "gram_sweep": 2 * nb, "matmul_tn": nb}]
+    if rep_1.ranks[0]["pass_launches"] != want_1:
+        raise AssertionError(f"dist bf16 1 x 1 x 1: launches "
+                             f"{rep_1.ranks[0]['pass_launches']}, want {want_1}")
+    rho_f = reps["fused"].result.rho.numpy()
+    gap_t = float(np.abs(rho_f - rep_t.result.rho.numpy()).max())
+    gap_1 = float(np.abs(rho_f - rep_1.result.rho.numpy()).max())
+    gap_32 = float(np.abs(rho_f - rho_f32).max())
+    print(f"[smoke] dist bf16 Europarl: unfused == fused bitwise per rank (rho, Xa, Xb): "
+          f"{same}; max |rho_kernels - rho_torch| = {gap_t:.3e}, max |rho_1x1x1 - "
+          f"rho_1x1x2| = {gap_1:.3e} (limits 1e-3); max |rho_bf16 - rho_f32| = {gap_32:.3e} "
+          f"(fused); sum rho {rho_f.sum():.6f} (f32 {rho_f32.sum():.6f})", flush=True)
+    if not all(same):
+        raise AssertionError("dist bf16 Europarl: unfused and fused collectives differ")
+    if not gap_t <= 1e-3 or not gap_1 <= 1e-3:
+        raise AssertionError("dist bf16 Europarl: the fit disagrees with the torch engine or "
+                             "with one rank")
+    for rep in (*reps.values(), rep_t, rep_1):
+        if not rho_ok(rep.result.rho):
+            raise AssertionError("dist bf16 Europarl: rho leaves [0, 1]")
+
+    smoke = ["--smoke", "--center", "--ranks", "4"] + bf16
+    print("[smoke] dist bf16: smoke width, centered, 4 ranks on 1 × 2 × 2 and 1 × 4 × 1",
+          flush=True)
+    sreps = {c: run_dist(smoke + ["--mesh", "1,2,2", "--collective", c], f"dist bf16 smoke {c}")
+             for c in ("unfused", "fused", "fused-int8ef")}
+    dist_checks(sreps, 1, "dist bf16 smoke", bf16=True)
+    rep_r = run_dist(smoke + ["--mesh", "1,4,1"], "dist bf16 smoke 1 x 4 x 1")
+    want_r = [{"power_project_accumulate[bf16]": 2}, {"projgram[bf16]": 2, "matmul_tn": 1}]
+    if any(r["pass_launches"] != want_r for r in rep_r.ranks):
+        raise AssertionError(f"dist bf16 smoke 1 x 4 x 1: launches "
+                             f"{[r['pass_launches'] for r in rep_r.ranks]}, want {want_r}")
+    gap = float(np.abs(rep_r.result.rho.numpy() - sreps["fused"].result.rho.numpy()).max())
+    print(f"[smoke] dist bf16 smoke: max |rho_1x4x1 - rho_1x2x2| = {gap:.3e} (limit 1e-3)",
+          flush=True)
+    if not gap <= 1e-3 or not rho_ok(rep_r.result.rho):
+        raise AssertionError("dist bf16 smoke: 1 x 4 x 1 disagrees with 1 x 2 x 2")
+    return {**launches_of([reps["unfused"]], ["matmul_nn[bf16]", "matmul_tn[bf16]"]),
+            **launches_of([reps["fused"]], ["proj_stage[bf16]", "powerpass_sweep[bf16]",
+                                            "gram_sweep[bf16]"]),
+            **launches_of([rep_1], ["powerpass_sweep[bf16,f32]"]),
+            **launches_of([rep_r], ["projgram[bf16]", "power_project_accumulate[bf16]"])}
+
+
+def sass_hmma() -> None:
+    """HMMA instructions per kernel of the two libraries that hold bf16
+    kernels, from ``cuobjdump -sass``: the tensor-core tiles must issue
+    them, the f32 tile (CUDA cores, no TF32) none."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        print("[smoke] cuobjdump not found: SASS not checked", flush=True)
+        return
+    for lib in ("gemm_bf16", "recompute_f32"):
+        sass = subprocess.run([str(tool), "-sass", str(build._target(lib))], capture_output=True,
+                              text=True, check=True).stdout
+        counts, ops, fn = {}, set(), None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+                ops.update(re.findall(r"HMMA\.\S+", line))
+        print(f"[smoke] SASS HMMA per kernel, {lib}: {counts}; opcodes {sorted(ops)}",
+              flush=True)
+        for fn, c in counts.items():
+            tensor_core = "mma_kernel" in fn or "recompute_bf16_kernel" in fn
+            if tensor_core != (c > 0):
+                raise AssertionError(f"{fn}: {c} HMMA instructions")
 
 
 def main() -> int:
@@ -896,6 +1228,7 @@ def main() -> int:
     for name, entry in build.BUILD_LOG.items():
         print(f"[smoke] nvcc {build.LIBRARIES[name].name} ({entry['seconds']:.2f} s):\n"
               f"{entry['log']}", flush=True)
+    sass_hmma()
 
     from repro_torch.configs.europarl_cca import config
     from repro_torch.data import DevicePlantedChunks
@@ -912,12 +1245,20 @@ def main() -> int:
     rows.update(phase_recompute(dev, a, b))
     torch.cuda.empty_cache()
     rows["matmul_nn"] = phase_matmul_nn(dev, a)
-    del a, b
+    a16 = a.to(torch.bfloat16)
+    del a
+    b16 = b.to(torch.bfloat16)
+    del b
+    torch.cuda.empty_cache()
+    rows.update(phase_bf16_kernels(dev, a16, b16))
+    del a16, b16
     torch.cuda.empty_cache()
     launches = phase_smoke_fits(dev)
     launches.update(phase_fit(dev))
     launches.update(phase_fit_910(dev))
-    launches.update(phase_dist(dev))
+    dist_launched, rho_f32 = phase_dist(dev)
+    launches.update(dist_launched)
+    launches.update(phase_dist_bf16(dev, rho_f32))
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port, with their plain versions.
 
-Eleven entry points, one launch counter each, over the CUDA kernels in
-``csrc/gemm_f32.cu``, ``csrc/recompute_f32.cu`` (both on the tile of
-``csrc/gemm.cuh``) and ``csrc/rand.cuh``:
+Eleven entry points, one launch counter per operand form, over the CUDA
+kernels in ``csrc/gemm_f32.cu``, ``csrc/gemm_bf16.cu``,
+``csrc/recompute_f32.cu`` (on the tiles of ``csrc/gemm.cuh`` and
+``csrc/gemm_bf16.cuh``) and ``csrc/rand.cuh``:
 
 ===============================  ============================================
 entry point                      replaces (JAX package)
@@ -24,6 +25,9 @@ power_project_accumulate_seeded  kernels/powerpass.py ``_powerpass_seeded_kernel
 
 Under the staged schedule the fused entry points launch the staged pair
 and count there; :mod:`.plan` and the ``choose_*_schedule`` rules decide.
+The seven unseeded entry points also take bf16 operands (f32
+accumulation and output), counted as e.g. ``proj_stage[bf16]`` or
+``powerpass_sweep[bf16,f32]``; :data:`.matmul.FORMS` lists every form.
 """
 
 from .matmul import matmul_nn, matmul_tn

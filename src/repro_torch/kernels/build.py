@@ -1,14 +1,15 @@
 """Build, load and launch the port's CUDA kernels.
 
-Two sources in ``csrc/``, each compiled at first use by its own ``nvcc``
-(both started together) into a shared library with a plain C interface,
-loaded with ``ctypes``:
+Three sources in ``csrc/``, each compiled at first use by its own
+``nvcc`` (all started together) into a shared library with a plain C
+interface, loaded with ``ctypes``:
 
-- ``gemm_f32.cu`` — the staged products and the seeded stage;
-- ``recompute_f32.cu`` — the fused recompute kernels;
+- ``gemm_f32.cu`` — the staged f32 products and the seeded stage;
+- ``gemm_bf16.cu`` — the staged products on bf16 operands;
+- ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16;
 
-both including ``gemm.cuh`` (the shared f32 tile) and ``rand.cuh`` (the
-Ω generator):
+on the headers ``gemm.cuh`` (the shared f32 tile), ``gemm_bf16.cuh`` (the
+bf16 tiles) and ``rand.cuh`` (the Ω generator):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -38,9 +39,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: The libraries: name → its one source.
-LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "recompute_f32": CSRC / "recompute_f32.cu"}
+LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "gemm_bf16": CSRC / "gemm_bf16.cu",
+             "recompute_f32": CSRC / "recompute_f32.cu"}
 #: The headers every source may include; each goes into every digest.
-HEADERS = (CSRC / "gemm.cuh", CSRC / "rand.cuh")
+HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,10 +58,20 @@ SIGNATURES = {
         # out, rows, cols, r0, d, kt, seed words, stream
         "omega_fill_f32": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
     },
+    "gemm_bf16": {
+        "gemm_nn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
+        "gemm_tn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        "gemm_tn_bf16_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+    },
     "recompute_f32": {
         # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, stream
         "recompute_f32": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
                           _ptr],
+        # the same arguments, on bf16 x and q (and a2 of the power form)
+        "projgram_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
+                          _ptr],
+        "power_recompute_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
+                                 _int, _ptr],
         # x, seed words, p, slab scratch, slab rows, a2, y, n, kt, d, m2, lda2,
         # accumulate, stream
         "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
@@ -67,7 +79,8 @@ SIGNATURES = {
     },
 }
 #: Each library's ``cudaGetErrorString``.
-ERROR_STRINGS = {"gemm_f32": "gemm_error_string", "recompute_f32": "recompute_error_string"}
+ERROR_STRINGS = {"gemm_f32": "gemm_error_string", "gemm_bf16": "gemm_bf16_error_string",
+                 "recompute_f32": "recompute_error_string"}
 _LIB_OF = {fn: lib for lib, fns in SIGNATURES.items() for fn in fns}
 
 #: Launches per Python entry point since the last :func:`reset_launches`.

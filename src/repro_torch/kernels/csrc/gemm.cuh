@@ -1,8 +1,13 @@
-// The f32 output tile that every GEMM of the port computes, and the
+// The f32 output tile that every f32 GEMM of the port computes, and the
 // one-tile-per-block kernel around it.  Included by gemm_f32.cu (the staged
-// products) and recompute_f32.cu (the fused recompute kernels), so both
-// libraries run the same FMA chains: that is what makes staged ≡ recompute
-// bitwise.
+// products), recompute_f32.cu (the fused recompute kernels) and, through
+// gemm_bf16.cuh, gemm_bf16.cu, so all run the same FMA chains: that is what
+// makes staged ≡ recompute bitwise.
+//
+// The A operand may also be bf16 (TA = bf16_bits, the mixed TN form ΔY =
+// Aᵀ·P with A bf16 and P f32, "tile 3" of gemm_bf16.cuh): each element is
+// widened to f32 as it is staged, which is exact, and the FMA chains are
+// the f32 ones.  TA = float is the f32 tile as it was.
 //
 // What bounds the tile on this card: arithmetic.  At the main path's shapes
 // (8192 rows, d = 2^19, k̃ ≈ 1000-2000) a P = X·Q or ΔY = Aᵀ·P is several
@@ -33,6 +38,9 @@
 #include <stdint.h>
 
 namespace gemm_f32 {
+
+// A bf16 element as its raw 16 bits: the high half of the f32 it widens to.
+using bf16_bits = uint16_t;
 
 constexpr int BM = 128;      // output rows per tile
 constexpr int BN = 128;      // output columns per tile
@@ -70,8 +78,20 @@ __device__ __forceinline__ float load(const float* p) {
   }
 }
 
+// A bf16 element widened to f32 (exact: the low 16 bits are zero).
+template <bool COHERENT>
+__device__ __forceinline__ float load(const bf16_bits* p) {
+  unsigned short bits;
+  if constexpr (COHERENT) {
+    bits = __ldcg(p);
+  } else {
+    bits = *p;
+  }
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
 // The tile at (m0, n0) of Y[m, n] (+)= Σ_k op(A)[m, k] · B[k, n], all
-// row-major f32.
+// row-major f32 (A f32 or, widened as it is staged, bf16).
 //   A_KMAJOR = false: A is (M, K) with row stride lda ≥ K — the NN product
 //                     X·Q, or X[:, k0:k0+K]·Q with lda = X's width.
 //   A_KMAJOR = true:  A is (K, M) with row stride lda ≥ M — the TN product
@@ -80,8 +100,8 @@ __device__ __forceinline__ float load(const float* p) {
 // or `mode_arg` when MODE is RUNTIME.  Every thread of the block calls it
 // with the same tile; it ends on a __syncthreads(), so the block may
 // start the next tile on the same staging at once.
-template <bool A_KMAJOR, int MODE, bool COHERENT = false>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
+template <bool A_KMAJOR, int MODE, bool COHERENT = false, typename TA = float>
+__device__ __forceinline__ void gemm_tile(const TA* __restrict__ A,
                                           const float* __restrict__ B,
                                           float* __restrict__ Y, int64_t M, int64_t N,
                                           int64_t K, int64_t lda, int mode_arg,
@@ -164,9 +184,9 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
 }
 
 // One tile per block: grid (⌈M / BM⌉, ⌈N / BN⌉).
-template <bool A_KMAJOR, int MODE>
+template <bool A_KMAJOR, int MODE, typename TA = float>
 __global__ void __launch_bounds__(THREADS, 2)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+gemm_f32_kernel(const TA* __restrict__ A, const float* __restrict__ B,
                 float* __restrict__ Y, int64_t M, int64_t N, int64_t K,
                 int64_t lda, int mode_arg) {
   __shared__ __align__(16) Tiles sm;
@@ -174,12 +194,12 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                             (int64_t)blockIdx.y * BN, sm);
 }
 
-template <bool A_KMAJOR, int MODE>
+template <bool A_KMAJOR, int MODE, typename TA = float>
 int launch_gemm(const void* a, const void* b, void* y, long long M, long long N,
                 long long K, long long lda, int mode, cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  gemm_f32_kernel<A_KMAJOR, MODE><<<grid, THREADS, 0, stream>>>(
-      (const float*)a, (const float*)b, (float*)y, M, N, K, lda, mode);
+  gemm_f32_kernel<A_KMAJOR, MODE, TA><<<grid, THREADS, 0, stream>>>(
+      (const TA*)a, (const float*)b, (float*)y, M, N, K, lda, mode);
   return (int)cudaGetLastError();
 }
 

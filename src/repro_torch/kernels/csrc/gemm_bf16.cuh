@@ -1,0 +1,284 @@
+// The bf16-operand tiles of the port: bf16 X and Q (or A and P), f32
+// accumulation, f32 output — what the reference's Pallas kernels compute on
+// bf16 operands (`preferred_element_type=jnp.float32`).  Three tiles serve
+// the seven bf16 forms:
+//
+//   tile 1  Y (M×N) = X (M×K) · Q (K×N), both bf16, on the tensor cores
+//           (mma_tile<false, ·>): proj_stage, matmul_nn, and phase 1 of the
+//           fused recompute kernels (recompute_f32.cu);
+//   tile 2  Y (M×N) (+)= Aᵀ · P with A (K×M) and P (K×N) both bf16, K the
+//           row axis, on the tensor cores (mma_tile<true, ·>):
+//           powerpass_sweep(bf16 P), matmul_tn, gram_sweep (A = P);
+//   tile 3  Y (+)= Aᵀ · P with A bf16 and P f32, on the CUDA cores: the f32
+//           tile of gemm.cuh with A widened to f32 as it is staged (exact,
+//           so this is the reference's promotion of the mixed product):
+//           powerpass_sweep(f32 P) and phase 2 of the fused power recompute.
+//
+// Tiles 1 and 2 (one function): a 128 × 128 output tile per 256-thread
+// block, 8 warps of 64 × 32, each warp 4 × 4 mma.sync.m16n8k16 (bf16 in,
+// f32 out) per 16-deep k step.  Operands are staged 32 deep in shared
+// memory, rows padded by 8 elements (16 bytes) so ldmatrix rows stay
+// 16-byte aligned and its eight row addresses fall in eight distinct bank
+// groups; the k-major operands (Q and P, and A of the TN product) are read
+// with ldmatrix.trans.  The next stage's global loads are issued into
+// registers before the current stage's products (one stage of register
+// prefetch).  wgmma, TMA and a deeper pipeline are later work.
+//
+// Global loads.  A bf16 row of Q or P at k̃ = 2060 is 4,120 bytes (8-byte
+// aligned), at k̃ = 970 1,940 bytes (4-byte aligned), at an odd k̃ 2-byte
+// aligned; X rows (2^18 or 2^19 elements) are 16-byte aligned.  Each thread
+// loads 8 consecutive elements of one row with the widest access its
+// address allows (16, 2 × 8, 4 × 4 bytes), element by element at a ragged
+// row end; past the matrix it stores zeros.
+//
+// The arithmetic, which the bitwise contracts rest on.  Each 16-deep k step
+// is one tensor-core product started from zero (bf16 × bf16 products are
+// exact; the 16 are summed inside the mma), added into the f32 accumulator
+// with one IEEE add: acc = acc + Σ_{k in step}, steps in ascending k, masked
+// terms past K zero.  Starting each step from zero keeps the tensor cores'
+// internal accumulation (alignment and truncation within one mma) to 16
+// terms; a K-long chain inside the mma would carry it over K/16 steps.  No
+// split-K, no atomics: two launches on the same inputs give equal bits, and
+// every bf16 × bf16 entry point shares this one function, so matmul_nn ≡
+// proj_stage, matmul_tn ≡ powerpass_sweep(bf16 P), gram_sweep(P) ≡
+// matmul_tn(P, P) and staged ≡ recompute hold bitwise in bf16 as in f32.
+// Bitwise equality with the f32 tile is not a contract: the sum inside one
+// mma is not an fmaf chain.
+//
+// What bounds it on this card: at the main path's shapes a bf16 product is
+// ~1,650 FLOP per byte of operands, above the tensor cores' balance point
+// (989 TFLOP/s ÷ 3.35 TB/s ≈ 295), so the bound is the tensor-core rate;
+// mma.sync cannot reach it (wgmma can), and this tile's staging is simple.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gemm.cuh"
+
+namespace gemm_bf16 {
+
+using gemm_f32::ACCUMULATE;
+using gemm_f32::bf16_bits;
+using gemm_f32::OVERWRITE;
+
+constexpr int BM = 128;      // output rows per tile
+constexpr int BN = 128;      // output columns per tile
+constexpr int BK = 32;       // contraction depth staged per step (two mma steps)
+constexpr int THREADS = 256; // 8 warps: 2 (rows) × 4 (columns) of 64 × 32
+constexpr int PAD = 8;       // row pad in elements (16 bytes)
+constexpr int A_MK_LD = BK + PAD;  // NN: the A tile as As[m][k]
+constexpr int A_KM_LD = BM + PAD;  // TN: the A tile as As[k][m]
+constexpr int B_LD = BN + PAD;     // the B tile as Bs[k][n]
+constexpr int CHUNKS = BM * BK / 8 / THREADS;  // 8-element loads per thread and operand
+static_assert(BM * BK == BK * BN, "both operand tiles hold the same number of chunks");
+static_assert(BM * A_MK_LD >= BK * A_KM_LD, "the A staging holds either layout");
+static_assert(BM == gemm_f32::BM && BN == gemm_f32::BN, "the fused kernels mix both tiles");
+
+// A block's shared-memory staging: 18,944 bytes.
+struct Tiles {
+  bf16_bits A[BM * A_MK_LD];
+  bf16_bits B[BK * B_LD];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Elements [col, col + 8) of row `row` of a (rows × cols) row-major bf16
+// matrix with row stride ld, packed two to a word (element 0 in the low
+// half); zeros past the matrix.
+__device__ __forceinline__ uint4 load_chunk(const bf16_bits* __restrict__ base, int64_t ld,
+                                            int64_t row, int64_t col, int64_t rows,
+                                            int64_t cols) {
+  if (row >= rows || col >= cols) return make_uint4(0u, 0u, 0u, 0u);
+  const bf16_bits* p = base + row * ld + col;
+  if (col + 8 <= cols) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    if ((addr & 15) == 0) return *reinterpret_cast<const uint4*>(p);
+    if ((addr & 7) == 0) {
+      const uint2 lo = reinterpret_cast<const uint2*>(p)[0];
+      const uint2 hi = reinterpret_cast<const uint2*>(p)[1];
+      return make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    if ((addr & 3) == 0) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+      return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = col + 2 * i < cols ? (uint32_t)p[2 * i] : 0u;
+    const uint32_t hi = col + 2 * i + 1 < cols ? (uint32_t)p[2 * i + 1] : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One stage's global loads into registers: this thread's chunks of the A
+// tile (rows m0.., columns k0.. of X; or rows k0.., columns m0.. of a
+// k-major A) and of the B tile (rows k0.., columns n0..).
+template <bool A_KMAJOR>
+__device__ __forceinline__ void fetch(const bf16_bits* __restrict__ A,
+                                      const bf16_bits* __restrict__ B, int64_t M, int64_t N,
+                                      int64_t K, int64_t lda, int64_t m0, int64_t n0,
+                                      int64_t k0, uint4 (&ra)[CHUNKS], uint4 (&rb)[CHUNKS]) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    ra[i] = A_KMAJOR ? load_chunk(A, lda, k0 + (e >> 4), m0 + (e & 15) * 8, K, M)
+                     : load_chunk(A, lda, m0 + (e >> 2), k0 + (e & 3) * 8, M, K);
+    rb[i] = load_chunk(B, N, k0 + (e >> 4), n0 + (e & 15) * 8, K, N);
+  }
+}
+
+template <bool A_KMAJOR>
+__device__ __forceinline__ void stash(const uint4 (&ra)[CHUNKS], const uint4 (&rb)[CHUNKS],
+                                      Tiles& sm) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    bf16_bits* a = A_KMAJOR ? &sm.A[(e >> 4) * A_KM_LD + (e & 15) * 8]
+                            : &sm.A[(e >> 2) * A_MK_LD + (e & 3) * 8];
+    *reinterpret_cast<uint4*>(a) = ra[i];
+    *reinterpret_cast<uint4*>(&sm.B[(e >> 4) * B_LD + (e & 15) * 8]) = rb[i];
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d = a · b for one 16 × 8 × 16 step, from zero.
+__device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  const float z = 0.0f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z), "f"(z),
+        "f"(z), "f"(z));
+}
+
+// The tile at (m0, n0) of Y (+)= op(A) · B, Y row-major f32 with row stride N.
+//   A_KMAJOR = false: A is X (M × K) with row stride lda ≥ K — tile 1;
+//   A_KMAJOR = true:  A is (K × M) with row stride lda ≥ M — tile 2, Aᵀ·B.
+// B is (K × N) with row stride N.  MODE is OVERWRITE or ACCUMULATE (one add
+// into Y after the full contraction).  Every thread of the block calls it
+// with the same tile; it ends on a __syncthreads(), so the block may start
+// the next tile on the same staging at once.
+template <bool A_KMAJOR, int MODE>
+__device__ __forceinline__ void mma_tile(const bf16_bits* __restrict__ A,
+                                         const bf16_bits* __restrict__ B,
+                                         float* __restrict__ Y, int64_t M, int64_t N,
+                                         int64_t K, int64_t lda, int64_t m0, int64_t n0,
+                                         Tiles& sm) {
+  static_assert(MODE == OVERWRITE || MODE == ACCUMULATE, "no continued bf16 chains");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64;  // the warp's rows within the tile
+  const int wn = (warp & 3) * 32;   // and columns
+
+  float acc[4][4][4];  // [m16 tile][n8 tile][fragment element]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+
+  uint4 ra[CHUNKS], rb[CHUNKS];
+  fetch<A_KMAJOR>(A, B, M, N, K, lda, m0, n0, 0, ra, rb);
+  for (int64_t k0 = 0; k0 < K; k0 += BK) {
+    stash<A_KMAJOR>(ra, rb, sm);
+    __syncthreads();
+    if (k0 + BK < K) fetch<A_KMAJOR>(A, B, M, N, K, lda, m0, n0, k0 + BK, ra, rb);
+
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int mb = wm + i * 16;
+        if (A_KMAJOR)  // matrices (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15)
+          ldmatrix_x4_trans(af[i], smem_addr(&sm.A[(ks + (lane & 7) + ((lane >> 4) << 3)) * A_KM_LD
+                                                   + mb + (((lane >> 3) & 1) << 3)]));
+        else           // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+          ldmatrix_x4(af[i], smem_addr(&sm.A[(mb + (lane & 15)) * A_MK_LD + ks
+                                             + ((lane >> 4) << 3)]));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // two n8 tiles per load: (k 0-7, n 0-7), (k 8-15, n 0-7), ...
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_addr(&sm.B[(ks + (lane & 15)) * B_LD + wn + j * 16
+                                             + ((lane >> 4) << 3)]));
+        bf[2 * j][0] = r[0];
+        bf[2 * j][1] = r[1];
+        bf[2 * j + 1][0] = r[2];
+        bf[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float d[4];
+          mma_step(d, af[i], bf[j][0], bf[j][1]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = __fadd_rn(acc[i][j][r], d[r]);
+        }
+    }
+    __syncthreads();
+  }
+
+  // ---- epilogue: element r of fragment (i, j) is row g + 8·(r / 2), column
+  // 2·(lane % 4) + r % 2 of that 16 × 8 tile; one add into Y when accumulating
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int64_t gm = m0 + wm + i * 16 + g + (r >> 1) * 8;
+        const int64_t gn = n0 + wn + j * 8 + c2 + (r & 1);
+        if (gm < M && gn < N) {
+          float* y = Y + gm * N + gn;
+          *y = MODE == ACCUMULATE ? __fadd_rn(*y, acc[i][j][r]) : acc[i][j][r];
+        }
+      }
+}
+
+// One tile per block: grid (⌈N / BN⌉, ⌈M / BM⌉), the column tiles fastest,
+// so the blocks that share a row panel of A run together and read it from L2.
+template <bool A_KMAJOR, int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
+mma_kernel(const bf16_bits* __restrict__ A, const bf16_bits* __restrict__ B,
+           float* __restrict__ Y, int64_t M, int64_t N, int64_t K, int64_t lda) {
+  __shared__ __align__(16) Tiles sm;
+  mma_tile<A_KMAJOR, MODE>(A, B, Y, M, N, K, lda, (int64_t)blockIdx.y * BM,
+                           (int64_t)blockIdx.x * BN, sm);
+}
+
+template <bool A_KMAJOR, int MODE>
+int launch_mma(const void* a, const void* b, void* y, long long M, long long N, long long K,
+               long long lda, cudaStream_t stream) {
+  const long long tiles_m = (M + BM - 1) / BM;
+  if (tiles_m > 65535) return (int)cudaErrorInvalidConfiguration;  // gridDim.y
+  const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)tiles_m);
+  mma_kernel<A_KMAJOR, MODE><<<grid, THREADS, 0, stream>>>(
+      (const bf16_bits*)a, (const bf16_bits*)b, (float*)y, M, N, K, lda);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gemm_bf16

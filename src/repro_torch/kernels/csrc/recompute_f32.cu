@@ -11,6 +11,14 @@
 //                         ← power_project_accumulate_seeded
 //                                           replaces src/repro/kernels/powerpass.py
 //                                             _powerpass_seeded_kernel
+//   projgram_bf16         ← projgram[bf16]  the bf16-operand form of _projgram_kernel
+//   power_recompute_bf16  ← power_project_accumulate[bf16]
+//                                           the bf16-operand form of _powerpass_kernel
+//
+// The bf16 forms take bf16 X and Q (and A), keep P and the accumulators in
+// f32, and run phase 1 on the tensor cores (tile 1 of gemm_bf16.cuh, the
+// staged proj_stage[bf16]'s) and phase 2 on the f32 tile (A widened for the
+// power form, as powerpass_sweep[bf16,f32]); each is bitwise its staged pair.
 //
 // What the TPU kernels keep out of device memory: P.  They hold a
 // (256 × k̃p) P tile in VMEM scratch over the contraction and fold it into
@@ -70,6 +78,7 @@
 #include <stdint.h>
 
 #include "gemm.cuh"
+#include "gemm_bf16.cuh"
 #include "rand.cuh"
 
 namespace {
@@ -99,11 +108,9 @@ recompute_f32_kernel(const float* __restrict__ X, const float* __restrict__ Q, f
                                  (t / tiles_m2) * BN, sm);
 }
 
-template <int MODE2>
-int launch_recompute(const float* x, const float* q, float* p, const float* a2, float* y,
-                     int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1,
-                     int64_t m2, int64_t lda2, cudaStream_t stream) {
-  const void* kern = (const void*)recompute_f32_kernel<MODE2>;
+// A cooperative launch of `kern` over at most as many blocks as can be
+// resident at once, and no more than `tiles`.
+int launch_cooperative(const void* kern, int64_t tiles, void** args, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -112,15 +119,79 @@ int launch_recompute(const float* x, const float* q, float* p, const float* a2, 
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int64_t tiles_n = (kt + BN - 1) / BN;
-  const int64_t t1 = ((n + BM - 1) / BM) * tiles_n, t2 = ((m2 + BM - 1) / BM) * tiles_n;
-  const int64_t tiles = t1 > t2 ? t1 : t2;
   const int64_t resident = (int64_t)per_sm * sms;
   const dim3 grid((unsigned)(tiles < resident ? tiles : resident));
-  void* args[] = {&x, &q, &p, &a2, &y, &n, &kt, &k1, &ldx, &mode1, &m2, &lda2};
   err = cudaLaunchCooperativeKernel(kern, grid, dim3(THREADS), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The larger of the two phases' tile counts.
+int64_t phase_tiles(int64_t n, int64_t kt, int64_t m2) {
+  const int64_t tiles_n = (kt + BN - 1) / BN;
+  const int64_t t1 = ((n + BM - 1) / BM) * tiles_n, t2 = ((m2 + BM - 1) / BM) * tiles_n;
+  return t1 > t2 ? t1 : t2;
+}
+
+template <int MODE2>
+int launch_recompute(const float* x, const float* q, float* p, const float* a2, float* y,
+                     int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1,
+                     int64_t m2, int64_t lda2, cudaStream_t stream) {
+  void* args[] = {&x, &q, &p, &a2, &y, &n, &kt, &k1, &ldx, &mode1, &m2, &lda2};
+  return launch_cooperative((const void*)recompute_f32_kernel<MODE2>,
+                            phase_tiles(n, kt, m2), args, stream);
+}
+
+// The bf16 forms.  Phase 1: P (n × kt, f32) = X·Q with X (n × d) and Q
+// (d × kt) bf16, tile 1 of gemm_bf16.cuh — proj_stage[bf16]'s tile.
+// Barrier.  Phase 2 as above: Y (m2 × kt) (+)= A2ᵀ·P with the f32 tile, A2
+// bf16 (power_project_accumulate[bf16]: tile 3, powerpass_sweep[bf16,f32]'s)
+// or f32 (projgram[bf16]: A2 = P, gram_sweep's).  So each is bitwise its
+// staged pair, as in f32.
+union StagingBoth {
+  Tiles f32;
+  gemm_bf16::Tiles bf16;
+};
+
+template <int MODE2, typename TA2>
+__global__ void __launch_bounds__(THREADS, 2)
+recompute_bf16_kernel(const bf16_bits* __restrict__ X, const bf16_bits* __restrict__ Q,
+                      float* P, const TA2* A2, float* __restrict__ Y, int64_t n, int64_t kt,
+                      int64_t d, int64_t m2, int64_t lda2) {
+  __shared__ __align__(16) StagingBoth sm;
+  const int64_t tiles_n = (kt + BN - 1) / BN;
+  const int64_t tiles_m1 = (n + BM - 1) / BM;
+  for (int64_t t = blockIdx.x; t < tiles_m1 * tiles_n; t += gridDim.x)
+    gemm_bf16::mma_tile<false, OVERWRITE>(X, Q, P, n, kt, d, d, (t % tiles_m1) * BM,
+                                          (t / tiles_m1) * BN, sm.bf16);
+  cg::this_grid().sync();  // every P tile written and visible
+  const int64_t tiles_m2 = (m2 + BM - 1) / BM;
+  for (int64_t t = blockIdx.x; t < tiles_m2 * tiles_n; t += gridDim.x)
+    gemm_tile<true, MODE2, true>(A2, P, Y, m2, kt, n, lda2, MODE2, (t % tiles_m2) * BM,
+                                 (t / tiles_m2) * BN, sm.f32);
+}
+
+template <int MODE2, typename TA2>
+int launch_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
+                          int64_t n, int64_t kt, int64_t d, int64_t m2, int64_t lda2,
+                          cudaStream_t stream) {
+  const bf16_bits* X = (const bf16_bits*)x;
+  const bf16_bits* Q = (const bf16_bits*)q;
+  float* P = (float*)p;
+  const TA2* A2 = (const TA2*)a2;
+  float* Y = (float*)y;
+  void* args[] = {&X, &Q, &P, &A2, &Y, &n, &kt, &d, &m2, &lda2};
+  return launch_cooperative((const void*)recompute_bf16_kernel<MODE2, TA2>,
+                            phase_tiles(n, kt, m2), args, stream);
+}
+
+template <typename TA2>
+int recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
+                   int64_t n, int64_t kt, int64_t d, int64_t m2, int64_t lda2, int accumulate,
+                   cudaStream_t stream) {
+  return accumulate
+      ? launch_recompute_bf16<ACCUMULATE, TA2>(x, q, p, a2, y, n, kt, d, m2, lda2, stream)
+      : launch_recompute_bf16<OVERWRITE, TA2>(x, q, p, a2, y, n, kt, d, m2, lda2, stream);
 }
 
 int recompute(const float* x, const float* q, float* p, const float* a2, float* y,
@@ -171,6 +242,24 @@ int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void*
     if (rc != 0) return rc;
   }
   return 0;
+}
+
+// recompute_f32 on bf16 X and Q (P, C f32): P = X·Q on the tensor cores,
+// then rows of C (+)= Pᵀ·P with the f32 tile.  a2 is P's window (f32).
+int projgram_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
+                  long long n, long long kt, long long d, long long m2, long long lda2,
+                  int accumulate, void* stream) {
+  return recompute_bf16<float>(x, q, p, a2, y, n, kt, d, m2, lda2, accumulate,
+                               (cudaStream_t)stream);
+}
+
+// recompute_f32 on bf16 B (as x), Q and A (as a2): P = B·Q on the tensor
+// cores into the f32 scratch p, then rows of ΔY (+)= Aᵀ·P with A widened.
+int power_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
+                         long long n, long long kt, long long d, long long m2,
+                         long long lda2, int accumulate, void* stream) {
+  return recompute_bf16<bf16_bits>(x, q, p, a2, y, n, kt, d, m2, lda2, accumulate,
+                                   (cudaStream_t)stream);
 }
 
 const char* recompute_error_string(int code) {

@@ -1,5 +1,5 @@
-"""The f32 GEMM launchers, the plain products ``matmul_nn`` and
-``matmul_tn``, and the schedule crossover.
+"""The GEMM launchers, their operand forms, the plain products
+``matmul_nn`` and ``matmul_tn``, and the schedule crossover.
 
 ``matmul_tn`` (O = Xᵀ·Y) is the port of ``repro/kernels/matmul.py``
 ``_mm_tn_kernel`` as ``pallas_matmul(transpose_lhs=True)`` launches it;
@@ -14,10 +14,12 @@ range in one block (one ascending FMA chain per element), so
 and counts its launches under its own name.  It is bound by f32
 operations (2·M·K·N FLOPs against 4·(MK + KN + MN) bytes).
 :func:`gemm_nn`, :func:`gemm_nn_seeded`, :func:`gemm_tn` and
-:func:`recompute` are the checked launchers every GEMM entry point of the
-package goes through (kernel sources: ``csrc/gemm_f32.cu``,
-``csrc/recompute_f32.cu``).  :func:`pick_schedule` is the port of the
-reference's crossover rule, at the H100's balance point.
+:func:`recompute` are the launchers every GEMM entry point of the package
+goes through (kernel sources: ``csrc/gemm_f32.cu``, ``csrc/gemm_bf16.cu``,
+``csrc/recompute_f32.cu``), each with the :class:`Form` that
+:func:`form` resolves from the entry point and its operands' dtypes
+(:data:`FORMS`).  :func:`pick_schedule` is the port of the reference's
+crossover rule, at the H100's balance point.
 
 A wrapper takes its plain version (:mod:`.ref`) only when its tensors
 lie on the CPU.  For CUDA tensors it launches the kernel or raises.
@@ -25,12 +27,16 @@ lie on the CPU.  For CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import build, ref
 from .plan import SEEDED_SLAB, TILE
 
-_MAX_GRID_Y = 65535  # column tiles ride gridDim.y
+# the f32 tile's column tiles ride gridDim.y (the bf16 tiles' row tiles do,
+# checked in C)
+_MAX_GRID_Y = 65535
 
 #: The H100's f32 balance point: 67 TFLOP/s on the CUDA cores ÷ 3.35 TB/s
 #: of HBM ≈ 20 FLOP per byte (the reference's 240 is a TPU's).  The f32
@@ -61,14 +67,71 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
-def _check(entry: str, *tensors: torch.Tensor) -> None:
+f32, bf16 = torch.float32, torch.bfloat16
+_NN = {(f32, f32): "gemm_nn_f32", (bf16, bf16): "gemm_nn_bf16"}
+#: The operand forms the CUDA kernels take: entry point → {operand dtypes,
+#: in the entry point's argument order → C function}.  The bf16 forms
+#: multiply exact bf16 products and sum them in f32 into an f32 output, as
+#: the reference's kernels do on bf16 operands; a bf16 A against an f32 P
+#: is the reference's promotion of the mixed product (``csrc/gemm_bf16.cu``).
+#: Anything else raises :class:`TypeError` on the card.
+FORMS = {
+    "proj_stage": _NN,
+    "matmul_nn": _NN,
+    "powerpass_sweep": {(f32, f32): "gemm_tn_f32", (bf16, bf16): "gemm_tn_bf16",
+                        (bf16, f32): "gemm_tn_bf16_f32"},
+    "matmul_tn": {(f32, f32): "gemm_tn_f32", (bf16, bf16): "gemm_tn_bf16"},
+    "gram_sweep": {(f32,): "gemm_tn_f32", (bf16,): "gemm_tn_bf16"},
+    "proj_stage_seeded": {(f32,): "proj_stage_seeded_f32"},
+    "projgram": {(f32, f32): "recompute_f32", (bf16, bf16): "projgram_bf16"},
+    "projgram_seeded": {(f32,): "recompute_seeded_f32"},
+    "power_project_accumulate": {(f32, f32, f32): "recompute_f32",
+                                 (bf16, bf16, bf16): "power_recompute_bf16"},
+    "power_project_accumulate_seeded": {(f32, f32): "recompute_seeded_f32"},
+}
+_SHORT = {f32: "f32", bf16: "bf16"}
+
+
+class Form(NamedTuple):
+    """One operand form of an entry point: the C function that computes
+    it, and the name its launches are counted under — the entry point's
+    for f32 operands, else e.g. ``proj_stage[bf16]`` or
+    ``powerpass_sweep[bf16,f32]`` (the operands' dtypes, each once)."""
+
+    fn: str
+    label: str
+
+
+def cuda_form(entry: str, *dtypes: torch.dtype) -> Form:
+    """The :class:`Form` of ``entry`` on operands of ``dtypes``; raises
+    :class:`TypeError` for a form no kernel takes."""
+    fn = FORMS[entry].get(tuple(dtypes))
+    if fn is None:
+        raise TypeError(f"{entry}: no CUDA kernel takes operands of dtypes "
+                        f"{[str(d) for d in dtypes]}; the forms are "
+                        f"{[[str(d) for d in k] for k in FORMS[entry]]}")
+    names = list(dict.fromkeys(_SHORT[d] for d in dtypes))
+    return Form(fn, entry if names == ["f32"] else f"{entry}[{','.join(names)}]")
+
+
+def form(entry: str, *tensors: torch.Tensor) -> Form:
+    """:func:`cuda_form` of ``entry`` on these operands, which must be 2-D
+    and contiguous (row-major)."""
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{entry}: the CUDA kernel takes float32, got {t.dtype}")
         if t.dim() != 2:
             raise ValueError(f"{entry}: expected 2-D operands, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{entry}: operands must be contiguous (row-major)")
+    return cuda_form(entry, *(t.dtype for t in tensors))
+
+
+def _check_out(label: str, out: torch.Tensor, shape, device) -> None:
+    """An f32 accumulator the kernel adds into."""
+    if out.dtype != f32:
+        raise TypeError(f"{label}: the accumulator must be float32, got {out.dtype}")
+    if tuple(out.shape) != tuple(shape) or out.device != device or not out.is_contiguous():
+        raise ValueError(f"{label}: out must be a contiguous {tuple(shape)} on {device}, got "
+                         f"{tuple(out.shape)} on {out.device}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -82,88 +145,82 @@ def _grid_ok(entry: str, M: int, N: int) -> None:
         raise ValueError(f"{entry}: {N} output columns exceed the launch grid")
 
 
-def gemm_nn(entry: str, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """P = x·q on the card: x (M, K), q (K, N) → (M, N) f32."""
-    _check(entry, x, q)
+def gemm_nn(f: Form, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """P = x·q on the card: x (M, K), q (K, N) → (M, N) f32, by the C
+    function of form ``f`` (from :func:`form`)."""
     (M, K), (K2, N) = x.shape, q.shape
     if K != K2:
-        raise ValueError(f"{entry}: contraction mismatch {K} vs {K2}")
-    _grid_ok(entry, M, N)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    build.launch(entry, "gemm_nn_f32", x.data_ptr(), q.data_ptr(),
-                 out.data_ptr(), M, N, K, _stream(x))
-    return out
-
-
-def gemm_nn_seeded(entry: str, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
-    """P = x·Ω(seed) on the card: x (M, K) → (M, kt) f32, Ω made in
-    K-slabs of :data:`SEEDED_SLAB` rows into a scratch allocated here
-    (one C call, 2·⌈K / SEEDED_SLAB⌉ CUDA launches)."""
-    _check(entry, x)
-    M, K = x.shape
-    if K == 0:
-        raise ValueError(f"{entry}: empty contraction")
-    _grid_ok(entry, M, kt)
-    out = torch.empty((M, kt), dtype=torch.float32, device=x.device)
-    slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=torch.float32, device=x.device)
-    build.launch(entry, "proj_stage_seeded_f32", x.data_ptr(), seed[0] & 0xFFFFFFFF,
-                 seed[1] & 0xFFFFFFFF, out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K,
+        raise ValueError(f"{f.label}: contraction mismatch {K} vs {K2}")
+    _grid_ok(f.label, M, N)
+    out = torch.empty((M, N), dtype=f32, device=x.device)
+    build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, N, K,
                  _stream(x))
     return out
 
 
-def gemm_tn(entry: str, x: torch.Tensor, y: torch.Tensor,
-            out: torch.Tensor | None = None) -> torch.Tensor:
-    """O = xᵀ·y on the card: x (K, M), y (K, N) → (M, N) f32.  With
-    ``out`` the full contraction is added into ``out`` in place."""
-    _check(entry, x, y)
-    (K, M), (K2, N) = x.shape, y.shape
-    if K != K2:
-        raise ValueError(f"{entry}: row mismatch {K} vs {K2}")
-    _grid_ok(entry, M, N)
-    accumulate = out is not None
-    if accumulate:
-        _check(entry, out)
-        if tuple(out.shape) != (M, N) or out.device != x.device:
-            raise ValueError(f"{entry}: out must be ({M}, {N}) on {x.device}, got "
-                             f"{tuple(out.shape)} on {out.device}")
-    else:
-        out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    build.launch(entry, "gemm_tn_f32", x.data_ptr(), y.data_ptr(),
-                 out.data_ptr(), M, N, K, int(accumulate), _stream(x))
+def gemm_nn_seeded(f: Form, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
+    """P = x·Ω(seed) on the card: x (M, K) → (M, kt) f32, Ω made in
+    K-slabs of :data:`SEEDED_SLAB` rows into a scratch allocated here
+    (one C call, 2·⌈K / SEEDED_SLAB⌉ CUDA launches)."""
+    M, K = x.shape
+    if K == 0:
+        raise ValueError(f"{f.label}: empty contraction")
+    _grid_ok(f.label, M, kt)
+    out = torch.empty((M, kt), dtype=f32, device=x.device)
+    slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=f32, device=x.device)
+    build.launch(f.label, f.fn, x.data_ptr(), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
+                 out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K, _stream(x))
     return out
 
 
-def recompute(entry: str, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.Tensor,
+def gemm_tn(f: Form, x: torch.Tensor, y: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """O = xᵀ·y on the card: x (K, M), y (K, N) → (M, N) f32.  With
+    ``out`` (f32) the full contraction is added into ``out`` in place."""
+    (K, M), (K2, N) = x.shape, y.shape
+    if K != K2:
+        raise ValueError(f"{f.label}: row mismatch {K} vs {K2}")
+    _grid_ok(f.label, M, N)
+    accumulate = out is not None
+    if accumulate:
+        _check_out(f.label, out, (M, N), x.device)
+    else:
+        out = torch.empty((M, N), dtype=f32, device=x.device)
+    build.launch(f.label, f.fn, x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+                 int(accumulate), _stream(x))
+    return out
+
+
+def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.Tensor,
               y: torch.Tensor, r0: int, r1: int, *, accumulate: bool = False) -> None:
     """One fused recompute launch on the card: P = x·q (q a (d, kt)
     tensor, or a seed whose Ω is made in slabs), then rows [r0, r1) of y
-    (+)= a2[:, r0:r1]ᵀ·P.  ``p`` (n, kt) receives P; a2 is (n, ·) and y
-    (·, kt), both row-major.  A seeded call issues 2·⌈d / SEEDED_SLAB⌉
+    (+)= a2[:, r0:r1]ᵀ·P.  ``p`` (n, kt) f32 receives P; a2 is (n, ·) and y
+    (·, kt) f32, both row-major.  A seeded call issues 2·⌈d / SEEDED_SLAB⌉
     CUDA launches, the last of them the fused one."""
     n, d = x.shape
     m2, lda2 = r1 - r0, a2.shape[1]
-    a2_ptr, y_ptr = a2.data_ptr() + 4 * r0, y.data_ptr() + 4 * r0 * kt
+    a2_ptr, y_ptr = a2.data_ptr() + a2.element_size() * r0, y.data_ptr() + 4 * r0 * kt
     if isinstance(q, torch.Tensor):
-        build.launch(entry, "recompute_f32", x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr,
-                     y_ptr, n, kt, d, m2, lda2, int(accumulate), _stream(x))
+        build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr, y_ptr,
+                     n, kt, d, m2, lda2, int(accumulate), _stream(x))
         return
-    slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=torch.float32, device=x.device)
-    build.launch(entry, "recompute_seeded_f32", x.data_ptr(), q[0] & 0xFFFFFFFF,
-                 q[1] & 0xFFFFFFFF, p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr,
-                 n, kt, d, m2, lda2, int(accumulate), _stream(x))
+    slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=f32, device=x.device)
+    build.launch(f.label, f.fn, x.data_ptr(), q[0] & 0xFFFFFFFF, q[1] & 0xFFFFFFFF,
+                 p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
+                 int(accumulate), _stream(x))
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """O = xᵀ·y: x (K, M), y (K, N) → (M, N) f32, contracting the
-    streamed row dimension without forming xᵀ."""
+    streamed row dimension without forming xᵀ.  f32 or bf16 operands."""
     if on_cpu(x, y):
         return ref.matmul_tn_ref(x, y)
-    return gemm_tn("matmul_tn", x, y)
+    return gemm_tn(form("matmul_tn", x, y), x, y)
 
 
 def matmul_nn(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """O = x·q: x (M, K), q (K, N) → (M, N) f32."""
+    """O = x·q: x (M, K), q (K, N) → (M, N) f32.  f32 or bf16 operands."""
     if on_cpu(x, q):
         return ref.matmul_nn_ref(x, q)
-    return gemm_nn("matmul_nn", x, q)
+    return gemm_nn(form("matmul_nn", x, q), x, q)

@@ -21,6 +21,14 @@ seeded final chunk            5: as above                 3: 2 ``projgram_seeded
                                                           ``matmul_tn``
 ============================  ==========================  ===============================
 
+On bf16 operands (the sharded fit's ``compute_dtype=torch.bfloat16``)
+the launches count under the bf16 form's name — ``proj_stage[bf16]``,
+``power_project_accumulate[bf16]``, ``projgram[bf16]`` — except where the
+operand is the f32 P: the staged power chunk sweeps with
+``powerpass_sweep[bf16,f32]`` (bf16 A, f32 P), and the final chunk's
+``gram_sweep`` and ``matmul_tn`` stay f32.  The seeded updates are f32
+only.
+
 A recompute shape of several buckets counts one launch per bucket.  Each
 seeded entry-point launch issues 2·⌈d / 4096⌉ CUDA launches (an
 ``omega_fill`` and an NN contraction per Ω slab, the last of them the
@@ -45,9 +53,17 @@ collective              power pass                         final pass
                         (:func:`sweep_accumulate`)         1 ``powerpass_sweep``
 ======================  =================================  =================================
 
+With ``compute_dtype=torch.bfloat16`` every launch in this table is the
+bf16 × bf16 form: ``matmul_nn[bf16]``, ``matmul_tn[bf16]``,
+``proj_stage[bf16]``, ``gram_sweep[bf16]``, ``powerpass_sweep[bf16]`` —
+except under ``fused-int8ef``, whose decoded sum of P is f32 (as in the
+reference): its power sweeps are ``powerpass_sweep[bf16,f32]`` and its
+final pass's Grams and cross term the f32 ``gram_sweep`` and
+``powerpass_sweep``.
+
 ``matmul_nn`` and ``proj_stage`` run the same CUDA kernel, as do
-``matmul_tn``, ``powerpass_sweep`` and ``gram_sweep``, so the unfused and
-fused collectives give the same bits.
+``matmul_tn``, ``powerpass_sweep`` and ``gram_sweep``, in each dtype, so
+the unfused and fused collectives give the same bits.
 """
 
 from __future__ import annotations
@@ -133,25 +149,30 @@ def gram_accumulate(p):
     return gram_sweep(p)
 
 
-def _power_view(n, d_out, d_in, kt, seeded, schedule):
+def _power_view(n, d_out, d_in, kt, seeded, schedule, dtype):
     """(launch plans, resolved schedule) of one view's ΔY update, as the
     engine runs it: accumulating into Y."""
     sched = (plan.check_schedule(schedule) if schedule else
-             choose_powerpass_schedule(n, d_out, d_in, kt, seeded=seeded, accumulate=True))
+             choose_powerpass_schedule(n, d_out, d_in, kt, seeded=seeded, accumulate=True,
+                                       dtype=dtype))
     if sched == "staged":
         return plan.plan_powerpass_staged(n, d_out, d_in, kt, accumulate=True,
-                                          seeded=seeded), sched
-    fused = (plan.plan_power_project_accumulate_seeded if seeded
-             else plan.plan_power_project_accumulate)
-    return fused(n, d_out, d_in, kt, accumulate=True), sched
+                                          seeded=seeded, dtype=dtype), sched
+    if seeded:
+        return plan.plan_power_project_accumulate_seeded(n, d_out, d_in, kt,
+                                                         accumulate=True), sched
+    return plan.plan_power_project_accumulate(n, d_out, d_in, kt, accumulate=True,
+                                              dtype=dtype), sched
 
 
-def _final_view(n, d, kt, seeded, schedule):
+def _final_view(n, d, kt, seeded, schedule, dtype):
     sched = (plan.check_schedule(schedule) if schedule else
-             choose_projgram_schedule(n, d, kt, seeded=seeded))
+             choose_projgram_schedule(n, d, kt, seeded=seeded, dtype=dtype))
     if sched == "staged":
-        return plan.plan_projgram_staged(n, d, kt, seeded=seeded), sched
-    return (plan.plan_projgram_seeded if seeded else plan.plan_projgram)(n, d, kt), sched
+        return plan.plan_projgram_staged(n, d, kt, seeded=seeded, dtype=dtype), sched
+    if seeded:
+        return plan.plan_projgram_seeded(n, d, kt), sched
+    return plan.plan_projgram(n, d, kt, dtype=dtype), sched
 
 
 def _join_schedules(*scheds):
@@ -163,9 +184,11 @@ def _join_schedules(*scheds):
 
 @functools.lru_cache(maxsize=512)
 def chunk_cost(kind: str, n: int, da: int, db: int, kt: int, *, engine: str = "kernels",
-               seeded: bool = False, schedule: str | None = None) -> dict:
+               seeded: bool = False, schedule: str | None = None,
+               dtype=plan.F32) -> dict:
     """Modelled FLOPs and bytes of one chunk update (both views) at
-    a:(n, da), b:(n, db), k̃, from the port's launch plans.
+    a:(n, da), b:(n, db), k̃ on operands of ``dtype``, from the port's
+    launch plans.
 
     Returns ``{"flops", "bytes", "kernels": [{"kernel", "calls", "flops",
     "bytes"}, ...], "schedule"}``; ``schedule`` is what the kernels
@@ -174,13 +197,15 @@ def chunk_cost(kind: str, n: int, da: int, db: int, kt: int, *, engine: str = "k
     per shape: treat the returned dict as read-only."""
     if engine != "kernels":
         return {"flops": None, "bytes": None, "kernels": [], "schedule": None}
+    if seeded and dtype != plan.F32:
+        raise TypeError("the seeded updates take float32 operands only")
     if kind == "power":
-        pa, sa = _power_view(n, da, db, kt, seeded, schedule)
-        pb, sb = _power_view(n, db, da, kt, seeded, schedule)
+        pa, sa = _power_view(n, da, db, kt, seeded, schedule, dtype)
+        pb, sb = _power_view(n, db, da, kt, seeded, schedule, dtype)
         launches = pa + pb
     elif kind == "final":
-        pa, sa = _final_view(n, da, kt, seeded, schedule)
-        pb, sb = _final_view(n, db, kt, seeded, schedule)
+        pa, sa = _final_view(n, da, kt, seeded, schedule, dtype)
+        pb, sb = _final_view(n, db, kt, seeded, schedule, dtype)
         launches = pa + pb + plan.plan_matmul_tn(n, kt, kt)
     else:
         raise ValueError(f"unknown pass kind {kind!r}")

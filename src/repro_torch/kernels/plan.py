@@ -2,13 +2,17 @@
 
 Port of ``repro/kernels/plan.py`` ``KernelPlan`` in the role it plays for
 the schedule rule and the cost model.  A :class:`LaunchPlan` records one
-CUDA launch: the kernel, its grid and block, its shared memory, the f32
-FLOPs it does, and the bytes it moves, reckoned as each input read once
-and each output written once.  A ``plan_*`` function returns the launches
-one call of the entry point of that name issues, in order.
+CUDA launch: the kernel, its grid and block, its shared memory, the
+FLOPs it does (and how many of them on the tensor cores), and the bytes
+it moves, reckoned as each input read once and each output written once,
+at 4 bytes per f32 and 2 per bf16 element.  A ``plan_*`` function
+returns the launches one call of the entry point of that name issues, in
+order; the unseeded ones take the operands' ``dtype``, as the
+reference's plans do.
 
 Plans come from the port's own tiles (``csrc/gemm.cuh``: a 128 × 128
-output tile per 256-thread block, 16,640 bytes of staging), never from
+output tile per 256-thread block, 16,640 bytes of staging;
+``csrc/gemm_bf16.cuh``: the same output tile, 18,944 bytes), never from
 the TPU's ``VMEM_BLOCK_ELEMS``.  Only the buckets of the recompute
 schedule share a number with the reference, and for a reason of their
 own (:data:`ONE_BUCKET_ELEMS`).
@@ -18,9 +22,17 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+F32, BF16 = torch.float32, torch.bfloat16
 TILE = 128  # output rows and columns per block (BM = BN)
 THREADS = 256
 SMEM_BYTES = 4 * 16 * (TILE + 4) + 4 * 16 * TILE  # gemm.cuh Tiles: As + Bs
+SMEM_BYTES_BF16 = 2 * TILE * (32 + 8) + 2 * 32 * (TILE + 8)  # gemm_bf16.cuh Tiles: A + B
+#: The H100's f32 rate on the CUDA cores over its dense bf16 tensor-core
+#: rate (67 / 989 TFLOP/s, data sheet): what one tensor-core FLOP costs in
+#: the schedule rule's f32 units (:func:`weighted_cost`).
+TENSOR_CORE_WEIGHT = 67 / 989
 FILL_BLOCK = (64, 4)  # rand.cuh omega_fill: columns × rows per block
 #: Blocks the cooperative recompute launch keeps resident on an H100 SXM:
 #: 2 per SM (``__launch_bounds__(256, 2)``) × 132 SMs.  The launcher asks
@@ -60,6 +72,7 @@ class LaunchPlan:
     smem_bytes: int
     flops: int
     bytes: int
+    tc_flops: int = 0  # of ``flops``, those on the tensor cores (bf16 products)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -94,21 +107,57 @@ def cost(plans) -> tuple[int, int]:
     return sum(p.flops for p in plans), sum(p.bytes for p in plans)
 
 
+def weighted_cost(plans) -> tuple[float, int]:
+    """(FLOPs at the CUDA cores' f32 rate, bytes) of a sequence of
+    launches, each tensor-core FLOP weighted by :data:`TENSOR_CORE_WEIGHT`:
+    what :func:`~.matmul.pick_schedule` charges at its f32 balance point,
+    so a tensor-core phase meets its own (≈ 295 FLOP/B).  f32 plans have
+    no tensor-core FLOPs, and this is :func:`cost`."""
+    flops = sum(p.flops - p.tc_flops + TENSOR_CORE_WEIGHT * p.tc_flops for p in plans)
+    return flops, sum(p.bytes for p in plans)
+
+
+def itemsize(dtype: torch.dtype) -> int:
+    if dtype not in (F32, BF16):
+        raise TypeError(f"the kernels take float32 or bfloat16 operands, not {dtype}")
+    return 4 if dtype == F32 else 2
+
+
 # --------------------------------------------------------------------------
 # single launches
 # --------------------------------------------------------------------------
 
 
-def gemm_nn(M: int, N: int, K: int, *, cont: bool = False) -> LaunchPlan:
-    """P (M×N) = X (M×K)·Q (K×N); ``cont`` continues P's chains (reads P)."""
+def gemm_nn(M: int, N: int, K: int, *, cont: bool = False, dtype=F32) -> LaunchPlan:
+    """P (M×N, f32) = X (M×K)·Q (K×N), both of ``dtype`` (bf16: on the
+    tensor cores); ``cont`` continues P's chains (reads P; f32 only)."""
+    flops = 2 * M * N * K
+    if dtype == BF16:
+        return LaunchPlan("gemm_nn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (THREADS,),
+                          SMEM_BYTES_BF16, flops, 2 * (M * K + K * N) + 4 * M * N,
+                          tc_flops=flops)
+    itemsize(dtype)
     return LaunchPlan("gemm_nn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
-                      2 * M * N * K, 4 * (M * K + K * N + M * N * (2 if cont else 1)))
+                      flops, 4 * (M * K + K * N + M * N * (2 if cont else 1)))
 
 
-def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False) -> LaunchPlan:
-    """O (M×N) (+)= Xᵀ·Y with X (K×M), Y (K×N)."""
-    return LaunchPlan("gemm_tn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
-                      2 * M * N * K, 4 * (K * M + K * N + M * N * (2 if accumulate else 1)))
+def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
+            p_dtype=None) -> LaunchPlan:
+    """O (M×N, f32) (+)= Xᵀ·Y with X (K×M) of ``dtype`` and Y (K×N) of
+    ``p_dtype`` (default ``dtype``): bf16 × bf16 on the tensor cores, bf16
+    × f32 on the CUDA cores with X widened."""
+    p_dtype = dtype if p_dtype is None else p_dtype
+    flops = 2 * M * N * K
+    nbytes = itemsize(dtype) * K * M + itemsize(p_dtype) * K * N + 4 * M * N * (
+        2 if accumulate else 1)
+    if dtype == BF16 and p_dtype == BF16:
+        return LaunchPlan("gemm_tn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (THREADS,),
+                          SMEM_BYTES_BF16, flops, nbytes, tc_flops=flops)
+    if p_dtype != F32:
+        raise TypeError(f"no TN kernel takes {dtype} X with {p_dtype} Y")
+    kernel = "gemm_tn_f32" if dtype == F32 else "gemm_tn_bf16_f32"
+    return LaunchPlan(kernel, (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES, flops,
+                      nbytes)
 
 
 def omega_fill(rows: int, cols: int) -> LaunchPlan:
@@ -117,13 +166,19 @@ def omega_fill(rows: int, cols: int) -> LaunchPlan:
                       FILL_BLOCK, 0, 0, 4 * rows * cols)
 
 
-def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int) -> LaunchPlan:
+def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
+              kernel: str = "recompute_f32") -> LaunchPlan:
     """One fused launch: P (n×k̃) over k1 contraction columns, then an
     m2-row accumulator bucket.  ``nbytes`` depends on which operands are
-    the entry point's inputs and outputs."""
+    the entry point's inputs and outputs.  The bf16 kernels
+    (``projgram_bf16``, ``power_recompute_bf16``) run the projection on
+    the tensor cores and the accumulation on the CUDA cores."""
     tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
-    return LaunchPlan("recompute_f32", (min(RESIDENT_BLOCKS, tiles),), (THREADS,), SMEM_BYTES,
-                      2 * n * k1 * kt + 2 * n * m2 * kt, nbytes)
+    proj = 2 * n * k1 * kt
+    bf16 = kernel != "recompute_f32"
+    return LaunchPlan(kernel, (min(RESIDENT_BLOCKS, tiles),), (THREADS,),
+                      max(SMEM_BYTES, SMEM_BYTES_BF16) if bf16 else SMEM_BYTES,
+                      proj + 2 * n * m2 * kt, nbytes, tc_flops=proj if bf16 else 0)
 
 
 def _per_bucket(rows: int, kt: int, one_bucket) -> tuple[LaunchPlan, ...]:
@@ -155,41 +210,45 @@ def _seeded(n: int, d: int, kt: int, last) -> tuple[LaunchPlan, ...]:
 # --------------------------------------------------------------------------
 
 
-def plan_proj_stage(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
-    return (gemm_nn(n, kt, d),)
+def plan_proj_stage(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    return (gemm_nn(n, kt, d, dtype=dtype),)
 
 
 def plan_proj_stage_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
     return _seeded(n, d, kt, lambda ks, cont: gemm_nn(n, kt, ks, cont=cont))
 
 
-def plan_powerpass_sweep(n: int, da: int, kt: int, *,
-                         accumulate: bool = False) -> tuple[LaunchPlan, ...]:
-    return (gemm_tn(da, kt, n, accumulate=accumulate),)
+def plan_powerpass_sweep(n: int, da: int, kt: int, *, accumulate: bool = False, dtype=F32,
+                         p_dtype=None) -> tuple[LaunchPlan, ...]:
+    """ΔY = Aᵀ·P with A of ``dtype`` and P of ``p_dtype`` (default
+    ``dtype``)."""
+    return (gemm_tn(da, kt, n, accumulate=accumulate, dtype=dtype, p_dtype=p_dtype),)
 
 
-def plan_gram_sweep(n: int, kt: int) -> tuple[LaunchPlan, ...]:
-    return (gemm_tn(kt, kt, n),)
+def plan_gram_sweep(n: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    return (gemm_tn(kt, kt, n, dtype=dtype),)
 
 
-def plan_matmul_nn(M: int, K: int, N: int) -> tuple[LaunchPlan, ...]:
+def plan_matmul_nn(M: int, K: int, N: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
     """O (M×N) = X (M×K)·Q (K×N): the NN kernel, as :func:`plan_proj_stage`."""
-    return (gemm_nn(M, N, K),)
+    return (gemm_nn(M, N, K, dtype=dtype),)
 
 
-def plan_matmul_tn(K: int, M: int, N: int) -> tuple[LaunchPlan, ...]:
-    return (gemm_tn(M, N, K),)
+def plan_matmul_tn(K: int, M: int, N: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    return (gemm_tn(M, N, K, dtype=dtype),)
 
 
 def plan_omega_fill(rows: int, kt: int) -> tuple[LaunchPlan, ...]:
     return (omega_fill(rows, kt),)
 
 
-def plan_projgram(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
-    """One launch per C bucket: X and Q read, P and the bucket's rows of
-    C written."""
-    return _per_bucket(kt, kt, lambda r0, r1: (
-        recompute(n, kt, d, r1 - r0, 4 * (n * d + d * kt + n * kt + (r1 - r0) * kt)),))
+def plan_projgram(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    """One launch per C bucket: X and Q (of ``dtype``) read, P and the
+    bucket's rows of C (f32) written."""
+    w = itemsize(dtype)
+    kernel = "recompute_f32" if dtype == F32 else "projgram_bf16"
+    return _per_bucket(kt, kt, lambda r0, r1: (recompute(
+        n, kt, d, r1 - r0, w * (n * d + d * kt) + 4 * (n * kt + (r1 - r0) * kt), kernel),))
 
 
 def plan_projgram_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
@@ -204,13 +263,17 @@ def plan_projgram_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
 
 
 def plan_power_project_accumulate(n: int, da: int, db: int, kt: int, *,
-                                  accumulate: bool = False) -> tuple[LaunchPlan, ...]:
-    """One launch per ΔY bucket: B, Q and the bucket's columns of A
-    read, its rows of ΔY written (and read, when accumulating).  P is
-    the launch's own scratch, neither input nor output."""
-    y = 2 if accumulate else 1
+                                  accumulate: bool = False,
+                                  dtype=F32) -> tuple[LaunchPlan, ...]:
+    """One launch per ΔY bucket: B, Q and the bucket's columns of A (of
+    ``dtype``) read, its rows of ΔY written (and read, when
+    accumulating).  P is the launch's own scratch, neither input nor
+    output."""
+    y, w = 2 if accumulate else 1, itemsize(dtype)
+    kernel = "recompute_f32" if dtype == F32 else "power_recompute_bf16"
     return _per_bucket(da, kt, lambda r0, r1: (recompute(
-        n, kt, db, r1 - r0, 4 * (n * db + db * kt + n * (r1 - r0) + y * (r1 - r0) * kt)),))
+        n, kt, db, r1 - r0,
+        w * (n * db + db * kt + n * (r1 - r0)) + 4 * y * (r1 - r0) * kt, kernel),))
 
 
 def plan_power_project_accumulate_seeded(n: int, da: int, db: int, kt: int, *,
@@ -225,13 +288,19 @@ def plan_power_project_accumulate_seeded(n: int, da: int, db: int, kt: int, *,
     return _per_bucket(da, kt, lambda r0, r1: _seeded(n, db, kt, last(r0, r1)))
 
 
-def plan_projgram_staged(n: int, d: int, kt: int, *,
-                         seeded: bool = False) -> tuple[LaunchPlan, ...]:
-    stage = plan_proj_stage_seeded if seeded else plan_proj_stage
-    return stage(n, d, kt) + plan_gram_sweep(n, kt)
+def plan_projgram_staged(n: int, d: int, kt: int, *, seeded: bool = False,
+                         dtype=F32) -> tuple[LaunchPlan, ...]:
+    """The stage on X and Q of ``dtype``, then the Gram of the f32 P."""
+    stage = plan_proj_stage_seeded(n, d, kt) if seeded else plan_proj_stage(n, d, kt,
+                                                                           dtype=dtype)
+    return stage + plan_gram_sweep(n, kt)
 
 
 def plan_powerpass_staged(n: int, da: int, db: int, kt: int, *, accumulate: bool = False,
-                          seeded: bool = False) -> tuple[LaunchPlan, ...]:
-    stage = plan_proj_stage_seeded if seeded else plan_proj_stage
-    return stage(n, db, kt) + plan_powerpass_sweep(n, da, kt, accumulate=accumulate)
+                          seeded: bool = False, dtype=F32) -> tuple[LaunchPlan, ...]:
+    """The stage on B and Q of ``dtype``, then the sweep of A (of
+    ``dtype``) against the f32 P."""
+    stage = plan_proj_stage_seeded(n, db, kt) if seeded else plan_proj_stage(n, db, kt,
+                                                                            dtype=dtype)
+    return stage + plan_powerpass_sweep(n, da, kt, accumulate=accumulate, dtype=dtype,
+                                        p_dtype=F32)

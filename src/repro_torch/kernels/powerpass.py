@@ -21,6 +21,12 @@ made, so no (d, k̃) Ω exists: :func:`proj_stage_seeded` (the port of
 Each phase is one CUDA launch over an (output tiles) grid that contracts
 its whole K range inside a block, and P is the exact (n, k̃) f32 tensor:
 nothing is padded.
+
+Operands are f32 or bf16 (``matmul.FORMS``): bf16 X and Q give an f32 P
+(tensor cores), the sweep takes bf16 A with a bf16 P (tensor cores) or
+an f32 P (A widened, CUDA cores), and the recompute takes bf16 A, B and
+Q; the seeded forms are f32 only.  The bf16 launches count under e.g.
+``proj_stage[bf16]``.
 """
 
 from __future__ import annotations
@@ -30,20 +36,22 @@ import functools
 import torch
 
 from . import plan, ref
-from .matmul import (_check, _grid_ok, gemm_nn, gemm_nn_seeded, gemm_tn, on_cpu,
+from .matmul import (_check_out, _grid_ok, form, gemm_nn, gemm_nn_seeded, gemm_tn, on_cpu,
                      pick_schedule, recompute)
 
 
 def proj_stage(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """P = x·q in f32.  x: (n, d), q: (d, k̃) → (n, k̃)."""
+    """P = x·q in f32.  x: (n, d), q: (d, k̃) → (n, k̃), both f32 or both
+    bf16."""
     if on_cpu(x, q):
         return ref.proj_stage_ref(x, q)
-    return gemm_nn("proj_stage", x, q)
+    return gemm_nn(form("proj_stage", x, q), x, q)
 
 
 def powerpass_sweep(a: torch.Tensor, p: torch.Tensor, *,
                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """ΔY = aᵀ·p in f32.  a: (n, da), p: (n, k̃) → (da, k̃).
+    """ΔY = aᵀ·p in f32.  a: (n, da), p: (n, k̃) → (da, k̃); a and p f32,
+    a and p bf16, or a bf16 and p f32.
 
     With ``out`` (a (da, k̃) f32 accumulator) the kernel adds ΔY into
     ``out`` in place, after the full contraction — the same rounding as
@@ -53,7 +61,7 @@ def powerpass_sweep(a: torch.Tensor, p: torch.Tensor, *,
     if on_cpu(a, p, *(() if out is None else (out,))):
         dY = ref.powerpass_sweep_ref(a, p)
         return dY if out is None else out.add_(dY)
-    return gemm_tn("powerpass_sweep", a, p, out)
+    return gemm_tn(form("powerpass_sweep", a, p), a, p, out)
 
 
 def proj_stage_seeded(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
@@ -64,48 +72,52 @@ def proj_stage_seeded(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     launch issues 2·⌈d / ``plan.SEEDED_SLAB``⌉ CUDA launches."""
     if on_cpu(x):
         return ref.proj_stage_seeded_ref(x, seed, kt)
-    return gemm_nn_seeded("proj_stage_seeded", x, seed, kt)
+    return gemm_nn_seeded(form("proj_stage_seeded", x), x, seed, kt)
 
 
 @functools.lru_cache(maxsize=256)
 def choose_powerpass_schedule(n: int, da: int, db: int, kt: int, *, seeded: bool = False,
-                              accumulate: bool = False) -> str:
+                              accumulate: bool = False, dtype: torch.dtype = torch.float32) -> str:
     """``"recompute"`` or ``"staged"`` for ΔY = Aᵀ(B·Q) at a:(n, da),
-    b:(n, db), k̃ — the reference's order of authority without its
-    autotune cache: a one-bucket ΔY recomputes (staging would add P's
-    round trip and remove nothing); otherwise the cheaper of the two
-    schedules' launch plans under :func:`~.matmul.pick_schedule`.  An
-    explicit ``schedule=`` to the entry point overrides this.  Memoized
-    per shape: the entry points ask on every call."""
+    b:(n, db), k̃ on operands of ``dtype`` — the reference's order of
+    authority without its autotune cache: a one-bucket ΔY recomputes
+    (staging would add P's round trip and remove nothing); otherwise the
+    cheaper of the two schedules' launch plans under
+    :func:`~.matmul.pick_schedule`, tensor-core FLOPs weighted to the f32
+    rate (:func:`~.plan.weighted_cost`).  An explicit ``schedule=`` to the
+    entry point overrides this.  Memoized per shape: the entry points ask
+    on every call."""
     if len(plan.buckets(da, kt)) == 1:
         return "recompute"
-    fused = (plan.plan_power_project_accumulate_seeded if seeded
-             else plan.plan_power_project_accumulate)
-    return pick_schedule({
-        "recompute": plan.cost(fused(n, da, db, kt, accumulate=accumulate)),
-        "staged": plan.cost(plan.plan_powerpass_staged(n, da, db, kt, accumulate=accumulate,
-                                                       seeded=seeded)),
-    })
+    if seeded:
+        rec = plan.plan_power_project_accumulate_seeded(n, da, db, kt, accumulate=accumulate)
+    else:
+        rec = plan.plan_power_project_accumulate(n, da, db, kt, accumulate=accumulate,
+                                                 dtype=dtype)
+    staged = plan.plan_powerpass_staged(n, da, db, kt, accumulate=accumulate, seeded=seeded,
+                                        dtype=dtype)
+    return pick_schedule({"recompute": plan.weighted_cost(rec),
+                          "staged": plan.weighted_cost(staged)})
 
 
 def _fused(entry: str, a: torch.Tensor, b: torch.Tensor, q, kt: int,
            out: torch.Tensor | None) -> torch.Tensor:
     """The recompute schedule on the card: one fused launch per ΔY
-    bucket, each projecting P = b·q into a scratch the launch keeps in
-    L2 and folding rows [r0, r1) of ΔY = aᵀP (into ``out`` if given)."""
-    _check(entry, a, b, *(t for t in (q, out) if isinstance(t, torch.Tensor)))
+    bucket, each projecting P = b·q into an f32 scratch the launch keeps
+    in L2 and folding rows [r0, r1) of ΔY = aᵀP (into ``out`` if given)."""
+    f = form(entry, a, b, *((q,) if isinstance(q, torch.Tensor) else ()))
     (n, da), (n2, db) = a.shape, b.shape
     if n != n2 or (isinstance(q, torch.Tensor) and tuple(q.shape) != (db, kt)):
-        raise ValueError(f"{entry}: shapes a {tuple(a.shape)}, b {tuple(b.shape)} and "
+        raise ValueError(f"{f.label}: shapes a {tuple(a.shape)}, b {tuple(b.shape)} and "
                          f"k̃ = {kt} do not chain")
-    _grid_ok(entry, n, kt)
-    _grid_ok(entry, da, kt)
-    if out is not None and tuple(out.shape) != (da, kt):
-        raise ValueError(f"{entry}: out must be ({da}, {kt}), got {tuple(out.shape)}")
+    _grid_ok(f.label, n, kt)
+    _grid_ok(f.label, da, kt)
+    if out is not None:
+        _check_out(f.label, out, (da, kt), a.device)
     y = torch.empty((da, kt), dtype=torch.float32, device=a.device) if out is None else out
     p = torch.empty((n, kt), dtype=torch.float32, device=a.device)
     for r0, r1 in plan.buckets(da, kt):
-        recompute(entry, b, q, kt, p, a, y, r0, r1, accumulate=out is not None)
+        recompute(f, b, q, kt, p, a, y, r0, r1, accumulate=out is not None)
     return y
 
 
@@ -113,8 +125,9 @@ def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, 
                              schedule: str | None = None,
                              out: torch.Tensor | None = None) -> torch.Tensor:
     """ΔY = aᵀ(b·q) in f32.  a: (n, da), b: (n, db), q: (db, k̃) →
-    (da, k̃); with ``out`` the full contraction is added into it once,
-    as :func:`powerpass_sweep` does, and ``out`` is returned.
+    (da, k̃), all f32 or all bf16 (P is f32 either way); with ``out``
+    the full contraction is added into it once, as :func:`powerpass_sweep`
+    does, and ``out`` is returned.
 
     ``schedule``: ``"staged"`` (:func:`proj_stage` then
     :func:`powerpass_sweep`, 2 launches), ``"recompute"`` (one fused
@@ -122,11 +135,15 @@ def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, 
     Bitwise equal on the card: the same FMA chains either way."""
     n, da = a.shape
     kt = q.shape[1]
+    host = on_cpu(a, b, q, *(() if out is None else (out,)))
+    if not host:
+        form("power_project_accumulate", a, b, q)  # the same forms under either schedule
     sched = (plan.check_schedule(schedule) if schedule is not None else
-             choose_powerpass_schedule(n, da, b.shape[1], kt, accumulate=out is not None))
+             choose_powerpass_schedule(n, da, b.shape[1], kt, accumulate=out is not None,
+                                       dtype=a.dtype))
     if sched == "staged":
         return powerpass_sweep(a, proj_stage(b, q), out=out)
-    if on_cpu(a, b, q, *(() if out is None else (out,))):
+    if host:
         dY = ref.power_project_accumulate_ref(a, b, q)
         return dY if out is None else out.add_(dY)
     return _fused("power_project_accumulate", a, b, q, kt, out)
@@ -142,12 +159,15 @@ def power_project_accumulate_seeded(a: torch.Tensor, b: torch.Tensor, seed, kt: 
     Ω slab by slab and contracts every slab but the last with the NN
     kernel, the last with the fused launch (2·⌈db / 4096⌉ CUDA launches)."""
     n, da = a.shape
+    host = on_cpu(a, b, *(() if out is None else (out,)))
+    if not host:
+        form("power_project_accumulate_seeded", a, b)
     sched = (plan.check_schedule(schedule) if schedule is not None else
              choose_powerpass_schedule(n, da, b.shape[1], kt, seeded=True,
                                        accumulate=out is not None))
     if sched == "staged":
         return powerpass_sweep(a, proj_stage_seeded(b, seed, kt), out=out)
-    if on_cpu(a, b, *(() if out is None else (out,))):
+    if host:
         dY = ref.power_project_accumulate_seeded_ref(a, b, seed, kt)
         return dY if out is None else out.add_(dY)
     return _fused("power_project_accumulate_seeded", a, b, seed, kt, out)

@@ -11,7 +11,9 @@ Port of ``repro/kernels/projgram.py``.  Two schedules, bitwise equal:
 
 :func:`projgram` picks one per shape (:func:`choose_projgram_schedule`)
 unless told; :func:`projgram_seeded` is the same with Ω(seed) made on the
-card.  P is returned either way: the cross term F needs it.
+card.  P is returned either way: the cross term F needs it.  On bf16
+X and Q (``projgram[bf16]``) P and C are f32, as in the reference
+(``p_dtype=jnp.float32``); :func:`gram_sweep` also takes a bf16 P.
 """
 
 from __future__ import annotations
@@ -21,50 +23,53 @@ import functools
 import torch
 
 from . import plan, ref
-from .matmul import _check, _grid_ok, gemm_tn, on_cpu, pick_schedule, recompute
+from .matmul import _grid_ok, form, gemm_tn, on_cpu, pick_schedule, recompute
 from .powerpass import proj_stage, proj_stage_seeded
 
 
 def gram_sweep(p: torch.Tensor) -> torch.Tensor:
-    """C = pᵀ·p in f32.  p: (n, k̃) → (k̃, k̃)."""
+    """C = pᵀ·p in f32.  p: (n, k̃), f32 or bf16 → (k̃, k̃)."""
     if on_cpu(p):
         return ref.gram_sweep_ref(p)
-    return gemm_tn("gram_sweep", p, p)
+    return gemm_tn(form("gram_sweep", p), p, p)
 
 
 @functools.lru_cache(maxsize=256)
-def choose_projgram_schedule(n: int, d: int, kt: int, *, seeded: bool = False) -> str:
-    """``"recompute"`` or ``"staged"`` for (P, PᵀP) at x:(n, d), k̃: a
-    one-bucket C recomputes, otherwise the cheaper plan under
-    :func:`~.matmul.pick_schedule` (the order of authority of
-    :func:`~.powerpass.choose_powerpass_schedule`)."""
+def choose_projgram_schedule(n: int, d: int, kt: int, *, seeded: bool = False,
+                             dtype: torch.dtype = torch.float32) -> str:
+    """``"recompute"`` or ``"staged"`` for (P, PᵀP) at x:(n, d), k̃ on
+    operands of ``dtype``: a one-bucket C recomputes, otherwise the
+    cheaper plan under :func:`~.matmul.pick_schedule` (the order of
+    authority of :func:`~.powerpass.choose_powerpass_schedule`)."""
     if len(plan.buckets(kt, kt)) == 1:
         return "recompute"
-    fused = plan.plan_projgram_seeded if seeded else plan.plan_projgram
-    return pick_schedule({"recompute": plan.cost(fused(n, d, kt)),
-                          "staged": plan.cost(plan.plan_projgram_staged(n, d, kt,
-                                                                        seeded=seeded))})
+    rec = (plan.plan_projgram_seeded(n, d, kt) if seeded
+           else plan.plan_projgram(n, d, kt, dtype=dtype))
+    staged = plan.plan_projgram_staged(n, d, kt, seeded=seeded, dtype=dtype)
+    return pick_schedule({"recompute": plan.weighted_cost(rec),
+                          "staged": plan.weighted_cost(staged)})
 
 
 def _fused(entry: str, x: torch.Tensor, q, kt: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The recompute schedule on the card: one fused launch per C
     bucket, each projecting P into ``p`` (identically each time) and
     forming rows [r0, r1) of C = PᵀP."""
-    _check(entry, x, *((q,) if isinstance(q, torch.Tensor) else ()))
+    f = form(entry, x, *((q,) if isinstance(q, torch.Tensor) else ()))
     n, d = x.shape
     if isinstance(q, torch.Tensor) and tuple(q.shape) != (d, kt):
-        raise ValueError(f"{entry}: q must be ({d}, {kt}), got {tuple(q.shape)}")
-    _grid_ok(entry, n, kt)
+        raise ValueError(f"{f.label}: q must be ({d}, {kt}), got {tuple(q.shape)}")
+    _grid_ok(f.label, n, kt)
     p = torch.empty((n, kt), dtype=torch.float32, device=x.device)
     c = torch.empty((kt, kt), dtype=torch.float32, device=x.device)
     for r0, r1 in plan.buckets(kt, kt):
-        recompute(entry, x, q, kt, p, p, c, r0, r1)
+        recompute(f, x, q, kt, p, p, c, r0, r1)
     return p, c
 
 
 def projgram(x: torch.Tensor, q: torch.Tensor, *,
              schedule: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(P, C) = (x·q, (x·q)ᵀ(x·q)) in f32.  x: (n, d), q: (d, k̃).
+    """(P, C) = (x·q, (x·q)ᵀ(x·q)) in f32.  x: (n, d), q: (d, k̃), both
+    f32 or both bf16.
 
     ``schedule``: ``"staged"`` (2 launches), ``"recompute"`` (one fused
     launch per C bucket; one at k̃ ≤ 1024) or ``None``
@@ -72,7 +77,7 @@ def projgram(x: torch.Tensor, q: torch.Tensor, *,
     n, d = x.shape
     kt = q.shape[1]
     sched = (plan.check_schedule(schedule) if schedule is not None
-             else choose_projgram_schedule(n, d, kt))
+             else choose_projgram_schedule(n, d, kt, dtype=x.dtype))
     if sched == "staged":
         p = proj_stage(x, q)
         return p, gram_sweep(p)

@@ -8,6 +8,8 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --mode dist --ranks 4
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --mode dist --ranks 2 --mesh 1,1,2 \
         --n-chunks 1 --microbatch 4096  # Europarl width, two ranks on one card
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --mode dist \
+        --ranks 4 --compute-dtype bfloat16
 
 Port of ``repro/launch/cca_fit.py``, modes ``stream`` (the port's
 default; the reference defaults to ``dist``) and ``dist``.
@@ -24,7 +26,11 @@ kernels; ``seeded-materialized``: the same Ω made up front).
 the reference's greedy ``make_host_mesh`` rule), each holding its block
 of the rows and features and running
 :func:`~repro_torch.core.rcca_dist.dist_randomized_cca` with
-``--collective`` and ``--microbatch``.  Each rank makes the same rows
+``--collective``, ``--microbatch`` and ``--compute-dtype`` (the dtype the
+passes cast each microbatch and Q to before the products: ``float32``,
+as the reference's default, or ``bfloat16``, whose products run the
+kernels' bf16 forms with f32 accumulation; stream mode takes float32
+only).  Each rank makes the same rows
 and Ω as stream mode, whole, and keeps its block; ranks make them one
 at a time.  On the card every rank gets ``cuda:r`` and NCCL when there
 are as many cards as ranks, else they share the cards over gloo, whose
@@ -64,6 +70,11 @@ from ..kernels import build
 from ..kernels import ops as kops
 from . import ranks
 from .mesh import data_axes, host_mesh_shape, model_axis
+
+
+#: ``--compute-dtype``: the dtype the sharded fit's passes cast each
+#: microbatch and Q to before the products.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class FitReport(NamedTuple):
@@ -131,6 +142,7 @@ class RankSpec:
     microbatch: Optional[int]
     device: str
     gather: bool
+    compute_dtype: str
 
 
 class DistReport(NamedTuple):
@@ -186,9 +198,10 @@ def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
 
 def dist_rank(mesh, spec: RankSpec) -> dict:
     """One rank of a dist-mode fit: make its blocks (ranks one at a time,
-    behind barriers), fit, and report its pass times, launches, seconds
-    in all-reduces, peak device memory, ρ, λ and a digest of its rows of
-    Xa and Xb (and, when ``spec.gather``, the whole Xa and Xb)."""
+    behind barriers), fit, and report its compute dtype, pass times,
+    launches, seconds in all-reduces, peak device memory, ρ, λ and a
+    digest of its rows of Xa and Xb (and, when ``spec.gather``, the whole
+    Xa and Xb)."""
     dev = resolve_device(spec.device)
     row_axes, col_axis = data_axes(mesh), model_axis(mesh)
     world = math.prod(mesh.shape.values())
@@ -219,11 +232,13 @@ def dist_rank(mesh, spec: RankSpec) -> dict:
 
     res = dist_randomized_cca(A_l, B_l, spec.wl.rcca, Qa_l, Qb_l, mesh, engine=spec.engine,
                               collective=spec.collective, microbatch=spec.microbatch,
+                              compute_dtype=COMPUTE_DTYPES[spec.compute_dtype],
                               on_pass_complete=on_pass_complete, device=dev)
     del A_l, B_l, Qa_l, Qb_l
     _sync(dev)
     report = {
         "rank": mesh.rank, "coords": dict(mesh.coords), "device": str(dev),
+        "compute_dtype": spec.compute_dtype,
         "pass_seconds": pass_seconds, "pass_launches": pass_launches,
         "pass_collective_seconds": pass_collective,
         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None,
@@ -253,22 +268,27 @@ def _placement(n_ranks: int, dev: torch.device) -> tuple[str, list]:
 def fit_dist(wl: CCAWorkload, *, n_ranks: int, mesh_shape=None, engine: str = DEFAULT_ENGINE,
              collective: str = "fused", microbatch: Optional[int] = None,
              device=DEFAULT_DEVICE, seed: int = 0, n_chunks: Optional[int] = None,
-             gather: bool = False, timeout: float = 1800.0) -> DistReport:
+             gather: bool = False, compute_dtype: str = "float32",
+             timeout: float = 1800.0) -> DistReport:
     """Dist-mode fit of ``wl`` on ``n_ranks`` rank processes laid out as
     ``mesh_shape`` (pod, data, model; default :func:`host_mesh_shape`),
-    n cut to ``n_chunks`` chunks, Ω from ``seed``.  Builds the kernels
-    first when they will run; any rank's failure raises here."""
+    n cut to ``n_chunks`` chunks, Ω from ``seed``, the passes' products in
+    ``compute_dtype`` (a key of :data:`COMPUTE_DTYPES`).  Builds the
+    kernels first when they will run; any rank's failure raises here."""
     dev = resolve_device(device)
     shape = tuple(mesh_shape) if mesh_shape is not None else host_mesh_shape(n_ranks)
     if math.prod(shape) != n_ranks:
         raise ValueError(f"mesh {shape} does not hold {n_ranks} ranks")
     if collective not in COLLECTIVES:
         raise ValueError(f"unknown collective {collective!r}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute dtype {compute_dtype!r}")
     n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
     if dev.type == "cuda" and engine == "kernels":
         build.build()  # the ranks load what the parent built
     backend, devices = _placement(n_ranks, dev)
-    specs = [RankSpec(wl, n, seed, engine, collective, microbatch, d, gather) for d in devices]
+    specs = [RankSpec(wl, n, seed, engine, collective, microbatch, d, gather, compute_dtype)
+             for d in devices]
     (reports,) = ranks.run([ranks.Call(dist_rank, [(ranks.OnMesh(shape), s) for s in specs])],
                            n_ranks, backend=backend, devices=devices, timeout=timeout)
     r0 = reports[0]
@@ -337,6 +357,9 @@ def main(argv=None):
                          "(fused, fused-int8ef) or around the unfused pair")
     ap.add_argument("--microbatch", type=int, default=None,
                     help="dist mode: rows per microbatch (default: all of a rank's rows)")
+    ap.add_argument("--compute-dtype", default="float32", choices=list(COMPUTE_DTYPES),
+                    help="dist mode: the dtype of the passes' products (bfloat16: bf16 "
+                         "operands, f32 accumulation); stream mode takes float32 only")
     ap.add_argument("--gather", action="store_true",
                     help="dist mode: gather Xa, Xb over the model axis (on at --smoke)")
     ap.add_argument("--k", type=int, default=None,
@@ -359,6 +382,10 @@ def main(argv=None):
         wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, **overrides))
     cfg = wl.rcca
     t0 = time.perf_counter()
+    if args.mode == "stream" and args.compute_dtype != "float32":
+        raise SystemExit("--compute-dtype bfloat16 applies to dist mode: the stream fit at "
+                         "RCCAConfig(dtype=bfloat16) needs the bf16 forms of the seeded "
+                         "kernels, a later slice of the port")
     if args.mode == "dist":
         if args.omega != "materialized":
             raise SystemExit("--omega applies to stream mode; dist mode draws Ω whole "
@@ -368,10 +395,11 @@ def main(argv=None):
         rep = fit_dist(wl, n_ranks=n_ranks, mesh_shape=shape, engine=args.engine,
                        collective=args.collective, microbatch=args.microbatch,
                        device=args.device, seed=args.seed, n_chunks=args.n_chunks,
-                       gather=args.gather or args.smoke)
+                       gather=args.gather or args.smoke, compute_dtype=args.compute_dtype)
         dt = time.perf_counter() - t0
         shared = rep.devices[0] != "cpu" and len(set(rep.devices)) < len(rep.devices)
         print(f"[cca] dist mode, engine={args.engine}, collective={args.collective}, "
+              f"compute_dtype={rep.ranks[0]['compute_dtype']}, "
               f"mesh={rep.mesh}, backend={rep.backend} ({n_ranks} ranks on "
               f"{sorted(set(rep.devices))}{', sharing cards' if shared else ''}), "
               f"n={rep.n} da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q} "

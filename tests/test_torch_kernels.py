@@ -159,7 +159,7 @@ def test_wrappers_reject_unsupported_devices():
 
 
 def test_build_targets_are_keyed_by_source_and_flags():
-    assert set(build.LIBRARIES) == {"gemm_f32", "recompute_f32"}
+    assert set(build.LIBRARIES) == {"gemm_f32", "gemm_bf16", "recompute_f32"}
     for name in build.LIBRARIES:
         target = build._target(name)
         assert target.parent == build.BUILD_DIR
