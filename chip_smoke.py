@@ -88,7 +88,31 @@ Phases, each of which fails the run by raising:
     ``proj_stage[bf16]`` and ``powerpass_sweep[bf16,f32]``; ρ within 1e-3
     of 1 × 1 × 2); then the smoke width, centered, on four ranks: 1 × 2 × 2
     under all three collectives and 1 × 4 × 1, where both passes
-    recompute (``power_project_accumulate[bf16]``, ``projgram[bf16]``).
+    recompute (``power_project_accumulate[bf16]``, ``projgram[bf16]``);
+12. seeded bf16 kernels (right after phase 10) — the bf16 generator
+    ``omega_fill[bf16]`` at (2^19, 2060) and at a ragged (300, 70):
+    bitwise the card's f32 Ω cast to bf16, each element equal to the plain
+    generator's bf16 Ω or one bf16 ulp from it (the count printed), exact
+    zeros in the padding; then the three seeded bf16 forms
+    (``proj_stage_seeded[bf16]``, ``projgram_seeded[bf16]``,
+    ``power_project_accumulate_seeded[bf16]``) at ragged shapes (d of
+    three slabs, a last slab of 4 rows, k̃ = 67 and 3), the smoke fit's
+    chunk, a shape of 2 C and 23 ΔY buckets, and the main path's shapes:
+    each BITWISE its materialized bf16 form on the card's own bf16 Ω
+    (``dense_omega(seed, d, k̃, bf16)``), within 4·√K·u of the plain
+    product on that same Ω (so the generator's gap is not in it), two
+    launches bitwise, recompute ≡ staged and ``out=`` ≡ acc + ΔY; times
+    beside the plain seeded version (plain generator included), the
+    library yardstick on the Ω made beforehand, and the bound (tensor-core
+    FLOPs plus the generator's int32 work);
+13. stream bf16 (after phase 7) — ``cca_fit --compute-dtype bfloat16``:
+    at Europarl width (p = 2000, 16 chunks, both passes staged)
+    ``--omega seeded`` bitwise ``seeded-materialized``, the kernels engine
+    against the torch engine (|Δρ| ≤ 1e-3); ``--p 910 --q 0`` seeded
+    bitwise its oracle; the smoke width, centered (both passes recompute):
+    seeded bitwise its oracle, kernels against torch.  Each fit prints its
+    launches by name, schedules, pass times, peak memory and Σρ beside
+    the f32 fit's.
 
 Every fit resets the launch counters just before it and reads them just
 after; the total wall time is printed at the end.
@@ -124,6 +148,9 @@ OMEGA_INT_OPS = 85
 OMEGA_ULP_BOUND = 8  # CUDA logf 1 ulp, cosf 2 ulp, one product rounding
 # the 16-chunk fit's peak while the merge stack kept closed groups on the card
 STACK_ON_CARD_PEAK_GB = 69.47
+# Σρ of each stream fit of this run, by its label (run_fit): the bf16 fits
+# print their distance to the f32 fit of the same data and Ω
+SUM_RHO: dict = {}
 
 # the p = 910 fit's sketch (k = 60) and the power pair's narrow A (one ΔY bucket)
 KT_910 = 970
@@ -160,9 +187,13 @@ REPLACES = {
 BF16_FORMS = ("proj_stage[bf16]", "matmul_nn[bf16]", "powerpass_sweep[bf16]",
               "matmul_tn[bf16]", "gram_sweep[bf16]", "powerpass_sweep[bf16,f32]",
               "projgram[bf16]", "power_project_accumulate[bf16]")
+# the bf16 forms of the three seeded kernels and of the generator they inline
+SEEDED_BF16_FORMS = ("proj_stage_seeded[bf16]", "projgram_seeded[bf16]",
+                     "power_project_accumulate_seeded[bf16]", "omega_fill[bf16]")
 SOURCES.update({name: RECOMPUTE if name.startswith(("projgram", "power_project")) else GEMM_BF16
-                for name in BF16_FORMS})
-REPLACES.update({name: REPLACES[name.split("[")[0]] for name in BF16_FORMS})
+                for name in BF16_FORMS + SEEDED_BF16_FORMS})
+SOURCES["omega_fill[bf16]"] = SOURCES["omega_fill"]
+REPLACES.update({name: REPLACES[name.split("[")[0]] for name in BF16_FORMS + SEEDED_BF16_FORMS})
 
 
 def mem_total() -> str:
@@ -771,8 +802,10 @@ def run_fit(argv, label):
     wall = time.perf_counter() - t0
     launches = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    SUM_RHO[label] = float(rep.result.rho.double().sum())
     print(f"[smoke] {label}: wall {wall:.3f} s, passes {rep.pass_seconds} s, "
-          f"peak memory {peak:.2f} GB, launches {launches}", flush=True)
+          f"schedules {rep.pass_schedules}, peak memory {peak:.2f} GB, launches {launches}, "
+          f"sum rho {SUM_RHO[label]:.6f}", flush=True)
     return rep, launches, peak, wall
 
 
@@ -1161,6 +1194,341 @@ def phase_dist_bf16(dev, rho_f32) -> dict:
             **launches_of([rep_r], ["projgram[bf16]", "power_project_accumulate[bf16]"])}
 
 
+def bf16_ulps(x, y) -> tuple[int, int, bool]:
+    """(elements that differ, largest distance in bf16 ulps, signs equal)
+    between two bf16 tensors: with equal signs, the 16-bit patterns of
+    neighbouring bf16 values differ by one."""
+    import torch
+
+    xi, yi = (t.contiguous().view(torch.int16).to(torch.int32) for t in (x, y))
+    differ = int((xi != yi).sum())
+    return differ, int((xi - yi).abs().max()), bool(((xi < 0) == (yi < 0)).all())
+
+
+def phase_omega_bf16(dev) -> dict:
+    """The bf16 generator (``omega_fill[bf16]``, §D.1) at the main path's
+    Ω and at a ragged (300, 70) padded to (384, 128): bitwise the card's
+    f32 Ω cast to bf16; against the plain generator's bf16 Ω, each element
+    equal or one bf16 ulp apart (the f32 elements may differ by up to
+    OMEGA_ULP_BOUND f32 ulps, and one rounding turns such a gap into one
+    bf16 ulp at rare elements; the count is printed); exact zeros in the
+    padding; two launches bitwise."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.kernels import rand
+
+    bf16 = torch.bfloat16
+    wl = config()
+    d, kt = wl.db, wl.rcca.sketch
+    seed = rand.omega_seeds(SEED)[1]
+    for dd, kk, rows, cols in [(d, kt, d, kt), (300, 70, 384, 128)]:
+        kw = dict(rows=rows, cols=cols, device=dev)
+        om16, again = (rand.omega_fill(seed, dd, kk, dtype=bf16, **kw) for _ in range(2))
+        cast = rand.omega_fill(seed, dd, kk, **kw).to(bf16)
+        plain = rand.omega_tile(seed, dd, kk, **kw).to(bf16)
+        torch.cuda.synchronize()
+        differ, max_ulp, same_sign = bf16_ulps(om16, plain)
+        zeros = bool((om16[dd:] == 0).all()) and bool((om16[:, kk:] == 0).all())
+        ok = [torch.equal(om16, cast), max_ulp <= 1 and same_sign, zeros,
+              torch.equal(om16, again)]
+        err = float((om16.float() - plain.float()).abs().max())
+        print(f"[smoke] omega_fill[bf16] ({dd}, {kk}) as ({rows}, {cols}): == omega_fill(f32)"
+              f".to(bf16) bitwise {ok[0]}; against the plain generator's bf16 Ω {differ} of "
+              f"{dd * kk} elements differ, by at most {max_ulp} bf16 ulp (bound 1), same signs "
+              f"{same_sign}, max_abs_err={err:.3e}; exact zeros outside {ok[2]}; "
+              f"repeat_bitwise={ok[3]}", flush=True)
+        if not all(ok):
+            raise AssertionError("omega_fill[bf16] disagrees with the cast f32 Ω or the plain "
+                                 "generator, or its padding is not zero")
+        if rows == d:
+            row_err = err
+        del om16, again, cast, plain
+    t = {"ms": time_ms(lambda: rand.omega_fill(seed, d, kt, dtype=bf16, device=dev), 10),
+         "plain_ms": time_ms(lambda: rand.omega_tile(seed, d, kt, device=dev).to(bf16), 3),
+         "library_ms": None}
+    row = dict(max_abs_err=row_err, **bound(0, 2 * d * kt, OMEGA_INT_OPS * d * kt), **t)
+    print(f"[smoke] omega_fill[bf16]: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); no library call makes this Ω",
+          flush=True)
+    return row
+
+
+def seeded_bf16_cases(x, a, seed, kt, omega):
+    """The three seeded bf16 forms on x (n, d) and, for the power form,
+    A = a (n, da), B = x, each against Ω(seed): per form (seeded call,
+    its materialized form on ``omega`` — the card's own bf16 Ω — the plain
+    product on ``omega``, the K of each output, the staged call or None),
+    each call returning a tuple."""
+    from repro_torch.kernels import (power_project_accumulate, power_project_accumulate_seeded,
+                                     proj_stage, proj_stage_seeded, projgram, projgram_seeded,
+                                     ref)
+
+    n, d = x.shape
+    return {
+        "proj_stage_seeded[bf16]": (lambda: (proj_stage_seeded(x, seed, kt),),
+                                    lambda: (proj_stage(x, omega),),
+                                    lambda: (ref.proj_stage_ref(x, omega),), (d,), None),
+        "projgram_seeded[bf16]": (lambda: projgram_seeded(x, seed, kt, schedule="recompute"),
+                                  lambda: projgram(x, omega, schedule="recompute"),
+                                  lambda: ref.projgram_ref(x, omega), (d, d + n),
+                                  lambda: projgram_seeded(x, seed, kt, schedule="staged")),
+        "power_project_accumulate_seeded[bf16]": (
+            lambda: (power_project_accumulate_seeded(a, x, seed, kt, schedule="recompute"),),
+            lambda: (power_project_accumulate(a, x, omega, schedule="recompute"),),
+            lambda: (ref.power_project_accumulate_ref(a, x, omega),), (d + n,),
+            lambda: (power_project_accumulate_seeded(a, x, seed, kt, schedule="staged"),)),
+    }
+
+
+def check_seeded_bf16(x, a, seed, kt, names) -> dict:
+    """§D.2-4 for the seeded bf16 forms ``names`` at x (n, d), a (n, da),
+    k̃: each form bitwise its materialized form on the card's bf16
+    ``dense_omega(seed, d, k̃)`` (seeded ≡ materialized), within 4·√K·u of
+    the plain product on that same Ω (``check_form``'s bound, so the
+    generator's gap to the plain generator is not in it), two launches
+    bitwise; the fused forms also recompute ≡ staged, and the power form's
+    ``out=acc`` ≡ acc + ΔY under both schedules.  Returns each form's max
+    abs error and its cases."""
+    import torch
+
+    from repro_torch.kernels import power_project_accumulate_seeded, rand
+
+    n, d = x.shape
+    omega = rand.dense_omega(seed, d, kt, torch.bfloat16, device=x.device)
+    cases = seeded_bf16_cases(x, a, seed, kt, omega)
+    print(f"[smoke] seeded bf16 forms at (n, d, k̃, da) = {(n, d, kt, a.shape[1])}", flush=True)
+    errs = {}
+    for name in names:
+        call, mat, plain, Ks, staged = cases[name]
+        errs[name] = check_form(name, call, plain, Ks, mat,
+                                "its materialized form on the card's bf16 Ω")
+        if staged is not None:
+            same = all(torch.equal(r, s) for r, s in zip(call(), staged()))
+            print(f"[smoke] {name}: recompute == staged bitwise: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: recompute is not its staged pair bitwise")
+    if "power_project_accumulate_seeded[bf16]" in names:
+        g = torch.Generator(device=x.device)
+        g.manual_seed(SEED + 31)
+        acc0 = torch.randn((a.shape[1], kt), generator=g, device=x.device)
+        ok = []
+        for sched in ("recompute", "staged"):
+            got = power_project_accumulate_seeded(a, x, seed, kt, schedule=sched,
+                                                  out=acc0.clone())
+            ok.append(torch.equal(got, acc0 + power_project_accumulate_seeded(
+                a, x, seed, kt, schedule="recompute")))
+        print(f"[smoke] power_project_accumulate_seeded[bf16](out=acc) == acc + ΔY bitwise "
+              f"(recompute, staged): {ok}", flush=True)
+        if not all(ok):
+            raise AssertionError("power_project_accumulate_seeded[bf16](out=) is not acc + ΔY")
+    return errs, cases, omega
+
+
+def phase_seeded_bf16(dev, a16, b16) -> dict:
+    """The three seeded bf16 forms (§D.2-4) at ragged shapes, at shapes of
+    several slabs and buckets, at the smoke fit's pass-0 shape, then at the
+    main path's shapes with times: ``proj_stage_seeded[bf16]`` at 8192 ×
+    2^19 → 2060 (the p = 2000 power pass stages), the fused forms at
+    8192 × 2^19 → 970 with the narrow A (8192 × 1024), as their f32 and
+    unseeded bf16 rows.  ``a16``, ``b16``: one Europarl chunk in bf16."""
+    import torch
+
+    from repro_torch.kernels import rand, ref
+
+    bf16 = torch.bfloat16
+    seed = rand.omega_seeds(SEED)[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 37)
+    all3 = ("proj_stage_seeded[bf16]", "projgram_seeded[bf16]",
+            "power_project_accumulate_seeded[bf16]")
+    # (n, d, k̃, da): three slabs, the last ragged (9001 = 2·4096 + 809), k̃ ragged;
+    # a last slab of 4 rows and k̃ = 3; the smoke fit's chunk (one slab, k̃ = 32);
+    # 2 C buckets (k̃ = 1100) and 23 ΔY buckets
+    for n, d, kt, da in [(333, 9001, 67, 517), (130, 4100, 3, 301), (512, 192, 32, 256),
+                         (333, 9001, 1100, 20000)]:
+        x, a = (torch.randn(s, generator=g, device=dev).to(bf16) for s in ((n, d), (n, da)))
+        check_seeded_bf16(x, a, seed, kt, all3)
+        del x, a
+    torch.cuda.empty_cache()
+
+    n, d = b16.shape
+    an = a16[:, :DA_NARROW].contiguous()
+    rows = {}
+    for kt, names in [(2060, all3[:1]), (KT_910, all3[1:])]:
+        errs, cases, omega = check_seeded_bf16(b16, an, seed, kt, names)
+        torch.cuda.empty_cache()
+        int_ops, gram = OMEGA_INT_OPS * d * kt, n * kt * (kt + 1)
+        proj = 2 * n * d * kt
+        plains = {
+            "proj_stage_seeded[bf16]": (lambda: ref.proj_stage_seeded_ref(b16, seed, kt),
+                                        lambda: torch.matmul(b16, omega), 0,
+                                        2 * n * d + 4 * n * kt),
+            "projgram_seeded[bf16]": (lambda: ref.projgram_seeded_ref(b16, seed, kt), None,
+                                      gram, 2 * n * d + 4 * (n * kt + kt * (kt + 1) // 2)),
+            "power_project_accumulate_seeded[bf16]": (
+                lambda: ref.power_project_accumulate_seeded_ref(an, b16, seed, kt),
+                lambda: torch.linalg.multi_dot([an.T, b16, omega]), 2 * n * DA_NARROW * kt,
+                2 * (n * d + n * DA_NARROW) + 4 * DA_NARROW * kt),
+        }
+        for name in names:
+            call, _, _, _, staged = cases[name]
+            plain, lib, flops, nbytes = plains[name]
+            t = {"ms": time_ms(call, 3), "plain_ms": time_ms(plain, 3),
+                 "library_ms": None if lib is None else time_ms(lib, 3)}
+            if staged is not None:
+                t["staged_ms"] = time_ms(staged, 3)
+            rows[name] = dict(max_abs_err=errs[name],
+                              **bound(flops, nbytes, int_ops, tc_flops=proj), **t)
+            lib_txt = ("none" if lib is None
+                       else f"{t['library_ms']:.3f} ms (bf16, on Ω made before)")
+            staged_txt = f", staged pair {t['staged_ms']:.3f} ms" if staged is not None else ""
+            # the tensor cores and the CUDA cores' int32 / f32 work are separate
+            # units: if they overlap fully, the least time is the larger of the two
+            overlap_ms = 1e3 * max(proj / BF16_PEAK_FLOPS,
+                                   flops / F32_PEAK_FLOPS + int_ops / INT32_PEAK_OPS,
+                                   nbytes / HBM_BYTES_PER_S)
+            print(f"[smoke] {name} at {(n, d)} → {kt}: kernel {t['ms']:.3f} ms{staged_txt}, "
+                  f"plain {t['plain_ms']:.3f} ms (plain generator included), library {lib_txt}, "
+                  f"bound {rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}, "
+                  f"tensor-core and CUDA-core times added), {overlap_ms:.3f} ms if the two "
+                  f"overlap; {(proj + flops) / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+            torch.cuda.empty_cache()
+        del cases, omega
+    return rows
+
+
+def bf16_fit_pair(argv, label, want_seeded, want_oracle, schedules):
+    """``--omega seeded`` and ``--omega seeded-materialized`` of one bf16
+    stream fit: launches and schedules as predicted, and ρ, Xa, Xb bitwise
+    equal.  Returns (seeded launches, oracle launches, seeded ρ)."""
+    import torch
+
+    rep_s, launches_s, peak_s, _ = run_fit(argv + ["--omega", "seeded"], f"{label} seeded")
+    fit_checks(rep_s, f"{label} seeded", want_seeded, schedules)
+    seeded = [t.cpu() for t in rep_s.result[:3]]
+    del rep_s
+    rep_m, launches_m, peak_m, _ = run_fit(argv + ["--omega", "seeded-materialized"],
+                                           f"{label} seeded-materialized")
+    fit_checks(rep_m, f"{label} seeded-materialized", want_oracle, schedules)
+    oracle = [t.cpu() for t in rep_m.result[:3]]
+    del rep_m
+    same = [torch.equal(x, y) for x, y in zip(seeded, oracle)]
+    print(f"[smoke] {label}: seeded vs seeded-materialized bitwise (Xa, Xb, rho): {same}; "
+          f"sum rho {float(seeded[2].double().sum()):.6f}; peak {peak_s:.2f} / {peak_m:.2f} GB",
+          flush=True)
+    if not all(same) or not rho_ok(seeded[2]):
+        raise AssertionError(f"{label}: seeded is not bitwise seeded-materialized, or rho "
+                             "leaves [0, 1]")
+    return launches_s, launches_m, seeded[2].double()
+
+
+# each bf16 stream fit of phase_stream_bf16 → the f32 fit of this script on
+# the same data and Ω
+F32_TWIN = {
+    "stream bf16 seeded": "omega=seeded",
+    "stream bf16 seeded-materialized": "omega=seeded-materialized",
+    "stream bf16 kernels engine": "kernels engine",
+    "stream bf16 torch engine": "torch engine",
+    "stream bf16 p=910 q=0 seeded": "p=910 q=0 seeded",
+    "stream bf16 p=910 q=0 seeded-materialized": "p=910 q=0 seeded-materialized",
+    "stream bf16 smoke seeded": "stream f32 smoke seeded",
+    "stream bf16 smoke seeded-materialized": "stream f32 smoke seeded",
+    "stream bf16 smoke kernels engine": "stream f32 smoke kernels engine",
+    "stream bf16 smoke torch": "stream f32 smoke torch",
+}
+
+
+def print_sum_rho_gaps() -> None:
+    """Each bf16 stream fit's Σρ beside its f32 twin's, and |Σρ_bf16 −
+    Σρ_f32|."""
+    for bf, f in F32_TWIN.items():
+        if f not in SUM_RHO:
+            print(f"[smoke] {bf}: sum rho {SUM_RHO[bf]:.6f} (no f32 run to compare)", flush=True)
+            continue
+        print(f"[smoke] {bf}: sum rho {SUM_RHO[bf]:.6f}, f32 ({f}) {SUM_RHO[f]:.6f}, "
+              f"|Σρ_bf16 − Σρ_f32| = {abs(SUM_RHO[bf] - SUM_RHO[f]):.3e}", flush=True)
+
+
+def phase_stream_bf16(dev) -> dict:
+    """The stream fit at ``--compute-dtype bfloat16`` (``RCCAConfig(dtype=
+    bfloat16)``): at Europarl width (p = 2000, both passes staged, n cut
+    to N_CHUNKS) ``--omega seeded`` bitwise ``seeded-materialized``, and
+    the materialized kernels engine against the torch engine (|Δρ| ≤ 1e-3);
+    ``--p 910 --q 0`` seeded bitwise its oracle (the final pass
+    recomputes); then the smoke width, centered, where both passes
+    recompute: seeded bitwise its oracle, kernels against torch.  Each fit
+    prints its launches by name, schedules, pass times, peak memory and
+    Σρ beside the f32 fit's.  Returns each seeded bf16 form's and the bf16
+    generator's launches in the run that drives it."""
+    import torch
+
+    bf16 = ["--compute-dtype", "bfloat16"]
+    argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED)] + bf16
+    print(f"[smoke] stream bf16: Europarl width, n cut to {N_CHUNKS} chunks of 8192 rows",
+          flush=True)
+    nc = N_CHUNKS
+    power = {"proj_stage[bf16]": 2 * nc, "powerpass_sweep[bf16,f32]": 2 * nc}
+    final = {"proj_stage[bf16]": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}
+    launches_s, launches_m, _ = bf16_fit_pair(
+        argv, "stream bf16", [{"proj_stage_seeded[bf16]": 2 * nc,
+                               "powerpass_sweep[bf16,f32]": 2 * nc}, final],
+        [{"omega_fill[bf16]": 2, **power}, final], ["staged", "staged"])
+    rep_k, _, peak_k, _ = run_fit(argv, "stream bf16 kernels engine")
+    fit_checks(rep_k, "stream bf16 kernels engine", [power, final], ["staged", "staged"])
+    rho_k = rep_k.result.rho.double().cpu()
+    finite = all(bool(torch.isfinite(t).all()) for t in rep_k.result[:3])
+    del rep_k
+    rep_t, launches_t, peak_t, _ = run_fit(argv + ["--engine", "torch"],
+                                           "stream bf16 torch engine")
+    rho_t = rep_t.result.rho.double().cpu()
+    del rep_t
+    gap = float((rho_k - rho_t).abs().max())
+    print(f"[smoke] stream bf16: max |rho_kernels - rho_torch| = {gap:.3e} (limit 1e-3); "
+          f"sum rho {float(rho_k.sum()):.6f} vs {float(rho_t.sum()):.6f}; peak {peak_k:.2f} / "
+          f"{peak_t:.2f} GB", flush=True)
+    if launches_t or not finite or not gap <= 1e-3 or not rho_ok(rho_k):
+        raise AssertionError("stream bf16: the engines disagree, or the fit is not finite "
+                             "in [0, 1]")
+
+    q0 = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED), "--p", "910",
+          "--q", "0"] + bf16
+    print("[smoke] stream bf16: p = 910, q = 0 (the final pass recomputes)", flush=True)
+    final_910 = {"projgram_seeded[bf16]": 2 * nc, "matmul_tn": nc}
+    launches_910, _, _ = bf16_fit_pair(
+        q0, "stream bf16 p=910 q=0", [final_910],
+        [{"omega_fill[bf16]": 2, "projgram[bf16]": 2 * nc, "matmul_tn": nc}], ["recompute"])
+
+    smoke = ["--smoke", "--center", "--device", dev.type, "--seed", str(SEED)]
+    print("[smoke] stream bf16: smoke width, centered (both passes recompute)", flush=True)
+    snc = 8
+    sfinal = {"projgram[bf16]": 2 * snc, "matmul_tn": snc}
+    # centering needs Ω at pass 0's boundary: one omega_fill[bf16] per view
+    launches_smoke, _, _ = bf16_fit_pair(
+        smoke + bf16, "stream bf16 smoke",
+        [{"power_project_accumulate_seeded[bf16]": 2 * snc}, {"omega_fill[bf16]": 2, **sfinal}],
+        [{"omega_fill[bf16]": 2, "power_project_accumulate[bf16]": 2 * snc}, sfinal],
+        ["recompute", "recompute"])
+    rep_k, _, _, _ = run_fit(smoke + bf16, "stream bf16 smoke kernels engine")
+    fit_checks(rep_k, "stream bf16 smoke kernels engine",
+               [{"power_project_accumulate[bf16]": 2 * snc}, sfinal], ["recompute", "recompute"])
+    rep_t, _, _, _ = run_fit(smoke + bf16 + ["--engine", "torch"], "stream bf16 smoke torch")
+    gap = float((rep_k.result.rho.double() - rep_t.result.rho.double()).abs().max())
+    print(f"[smoke] stream bf16 smoke: max |rho_kernels - rho_torch| = {gap:.3e} (limit 1e-3)",
+          flush=True)
+    if not gap <= 1e-3 or not rho_ok(rep_k.result.rho):
+        raise AssertionError("stream bf16 smoke: the engines disagree, or rho leaves [0, 1]")
+    for label, extra in [("seeded", ["--omega", "seeded"]), ("kernels engine", []),
+                         ("torch", ["--engine", "torch"])]:  # the f32 twins at the smoke width
+        run_fit(smoke + extra, f"stream f32 smoke {label}")
+    print_sum_rho_gaps()
+    return {"proj_stage_seeded[bf16]": launches_s["proj_stage_seeded[bf16]"],
+            "omega_fill[bf16]": launches_m["omega_fill[bf16]"],
+            "projgram_seeded[bf16]": launches_910["projgram_seeded[bf16]"],
+            "power_project_accumulate_seeded[bf16]":
+                launches_smoke["power_project_accumulate_seeded[bf16]"]}
+
+
 def sass_hmma() -> None:
     """HMMA instructions per kernel of the two libraries that hold bf16
     kernels, from ``cuobjdump -sass``: the tensor-core tiles must issue
@@ -1251,11 +1619,16 @@ def main() -> int:
     del b
     torch.cuda.empty_cache()
     rows.update(phase_bf16_kernels(dev, a16, b16))
+    torch.cuda.empty_cache()
+    rows["omega_fill[bf16]"] = phase_omega_bf16(dev)
+    torch.cuda.empty_cache()
+    rows.update(phase_seeded_bf16(dev, a16, b16))
     del a16, b16
     torch.cuda.empty_cache()
     launches = phase_smoke_fits(dev)
     launches.update(phase_fit(dev))
     launches.update(phase_fit_910(dev))
+    launches.update(phase_stream_bf16(dev))
     dist_launched, rho_f32 = phase_dist(dev)
     launches.update(dist_launched)
     launches.update(phase_dist_bf16(dev, rho_f32))

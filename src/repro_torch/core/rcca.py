@@ -208,8 +208,9 @@ def seeded_update_fn(kind: str, kt: int):
     slots carry the per-view seeds (two uint32 words each) instead of
     (d, k̃) tensors — the arity of :func:`update_fn`'s result, so the fold
     is unchanged — and Ω is made on the card slab by slab inside the
-    seeded stage.  Bitwise the materialized update fed
-    ``rand.dense_omega(seed, d, kt)``."""
+    seeded stage, in f32 and rounded once to the chunk's dtype (the
+    config's).  Bitwise the materialized update fed
+    ``rand.dense_omega(seed, d, kt, dtype)``."""
     if kind == "power":
         def upd(s: PowerStats, a, b, seed_a, seed_b) -> PowerStats:
             Ya, Yb = kops.power_pass_chunk_seeded(a, b, seed_a, seed_b, kt=kt,
@@ -250,13 +251,17 @@ def stats_init_fn(kind: str, da: int, db: int, sketch: int, device=DEFAULT_DEVIC
 # --------------------------------------------------------------------------
 
 
+# The f32 means meet Q promoted to f32, as jnp promotes a bf16 Q (torch
+# refuses the mixed product); for an f32 Q the promotion is the identity.
+
+
 def centered_Y(s: PowerStats, Qa, Qb, center: bool):
     if not center:
         return s.Ya, s.Yb
     n = torch.clamp(s.n, min=1.0)
     mu_a, mu_b = s.sa / n, s.sb / n
-    Ya = s.Ya - n * torch.outer(mu_a, mu_b @ Qb)  # ĀᵀB̄Qb = AᵀBQb − n μa(μbᵀQb)
-    Yb = s.Yb - n * torch.outer(mu_b, mu_a @ Qa)
+    Ya = s.Ya - n * torch.outer(mu_a, mu_b @ Qb.to(f32))  # ĀᵀB̄Qb = AᵀBQb − n μa(μbᵀQb)
+    Yb = s.Yb - n * torch.outer(mu_b, mu_a @ Qa.to(f32))
     return Ya, Yb
 
 
@@ -264,8 +269,8 @@ def centered_CF(s: FinalStats, Qa, Qb, center: bool):
     if not center:
         return s.Ca, s.Cb, s.F
     n = torch.clamp(s.n, min=1.0)
-    qa = Qa.T @ (s.sa / n)  # (k̃,) = Qaᵀ μa
-    qb = Qb.T @ (s.sb / n)
+    qa = Qa.T.to(f32) @ (s.sa / n)  # (k̃,) = Qaᵀ μa
+    qb = Qb.T.to(f32) @ (s.sb / n)
     return (s.Ca - n * torch.outer(qa, qa), s.Cb - n * torch.outer(qb, qb),
             s.F - n * torch.outer(qa, qb))
 

@@ -88,15 +88,18 @@ class DevicePlantedChunks:
 
     Chunk ``i`` comes from a generator seeded with a function of
     ``(seed, i)``, so every pass replays the same rows.  Each view is
-    made in place — ``normal_`` into the output, then ``mul_`` and
-    ``addmm_`` — so no temporary of the chunk's size exists.
+    made in place in f32 — ``normal_`` into the output, then ``mul_`` and
+    ``addmm_`` — so no temporary of the chunk's size exists, and is cast
+    to ``dtype`` as soon as it is made (before the next view is), so a
+    bf16 chunk pair never sits beside its f32 pair: at Europarl width
+    that is 16 GiB against 32.
     """
 
     def __init__(self, n: int, da: int, db: int, *, rank: int = 64,
                  decay: float = 0.7, noise: float = 0.5, seed: int = 0,
-                 chunk: int = 1024, device=DEFAULT_DEVICE):
+                 chunk: int = 1024, dtype=torch.float32, device=DEFAULT_DEVICE):
         self.n, self.da, self.db, self.chunk = n, da, db, chunk
-        self.rank, self.noise, self.seed = rank, noise, seed
+        self.rank, self.noise, self.seed, self.dtype = rank, noise, seed, dtype
         self.device = resolve_device(device)
         g = self._generator(_weights_seed(seed))
         self.scales = torch.arange(1, rank + 1, dtype=torch.float32,
@@ -121,18 +124,24 @@ class DevicePlantedChunks:
 
     def get_chunk(self, idx: int, cols_a: slice = slice(None),
                   cols_b: slice = slice(None)) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Chunk ``idx``; ``cols_a`` / ``cols_b`` keep only those feature
-        columns of each view (a sharded rank's block), each copied out
-        before the next view is made, so at most one whole view exists."""
+        """Chunk ``idx`` in ``dtype``; ``cols_a`` / ``cols_b`` keep only
+        those feature columns of each view (a sharded rank's block), each
+        copied out and cast before the next view is made, so at most one
+        whole f32 view exists."""
         lo = idx * self.chunk
         m = min(lo + self.chunk, self.n) - lo
         g = self._generator(_chunk_seed(self.seed, idx))
         Z = torch.randn((m, self.rank), generator=g, device=self.device) * self.scales
-        A = self._view(g, Z, self.Wa, self.da)
-        if cols_a != slice(None):
-            A = A[:, cols_a].contiguous()
-        B = self._view(g, Z, self.Wb, self.db)
-        return A, B if cols_b == slice(None) else B[:, cols_b].contiguous()
+        A = self._finish(self._view(g, Z, self.Wa, self.da), cols_a)
+        B = self._finish(self._view(g, Z, self.Wb, self.db), cols_b)
+        return A, B
+
+    def _finish(self, X: torch.Tensor, cols: slice) -> torch.Tensor:
+        """The kept columns of a view made in f32, in ``dtype`` (``X`` is
+        released by the caller's rebinding)."""
+        if cols != slice(None):
+            X = X[:, cols].contiguous()
+        return X.to(self.dtype)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         for i in range(self.n_chunks):

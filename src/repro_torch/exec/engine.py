@@ -83,7 +83,8 @@ class PassEngine:
     update makes Ω slab by slab on the card: no (d, k̃) Ω exists during
     the pass.  The torch engine materializes the same Ω from the seeds,
     and ``"seeded-materialized"`` does so for every engine — the bitwise
-    oracle of the seeded path.
+    oracle of the seeded path.  Ω is made in f32 and rounded once to
+    ``cfg.dtype`` in every mode (f32 or bf16), as the reference makes it.
     """
 
     def __init__(self, cfg, *, engine: Optional[str] = None,
@@ -96,9 +97,6 @@ class PassEngine:
         self.merge_group = int(merge_group)
         self.device = resolve_device(device)
         self.omega = resolve_omega(omega)
-        if self.seeds_in_slots and cfg.dtype != torch.float32:
-            raise ValueError("the seeded kernels make Ω in float32; "
-                             f"got cfg.dtype={cfg.dtype}")
 
     @property
     def seeds_in_slots(self) -> bool:
@@ -204,7 +202,7 @@ class PassEngine:
             if len(schedules) == n_pass:
                 schedules.append(kops.chunk_cost(
                     kind, int(a.shape[0]), int(a.shape[1]), int(b.shape[1]), kt,
-                    engine=self.engine, seeded=seeded)["schedule"])
+                    engine=self.engine, seeded=seeded, dtype=a.dtype)["schedule"])
             return fn(s, a, b, Qa, Qb)
         return upd
 

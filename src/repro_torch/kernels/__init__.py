@@ -25,9 +25,11 @@ power_project_accumulate_seeded  kernels/powerpass.py ``_powerpass_seeded_kernel
 
 Under the staged schedule the fused entry points launch the staged pair
 and count there; :mod:`.plan` and the ``choose_*_schedule`` rules decide.
-The seven unseeded entry points also take bf16 operands (f32
-accumulation and output), counted as e.g. ``proj_stage[bf16]`` or
-``powerpass_sweep[bf16,f32]``; :data:`.matmul.FORMS` lists every form.
+Every entry point also takes bf16 operands (f32 accumulation and
+output), counted as e.g. ``proj_stage[bf16]`` or
+``powerpass_sweep[bf16,f32]``; the seeded ones and ``omega_fill`` then
+make Ω in f32 and round it once to bf16 (``proj_stage_seeded[bf16]``,
+``omega_fill[bf16]``).  :data:`.matmul.FORMS` lists every form.
 """
 
 from .matmul import matmul_nn, matmul_tn

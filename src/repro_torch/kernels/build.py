@@ -5,8 +5,10 @@ Three sources in ``csrc/``, each compiled at first use by its own
 interface, loaded with ``ctypes``:
 
 - ``gemm_f32.cu`` — the staged f32 products and the seeded stage;
-- ``gemm_bf16.cu`` — the staged products on bf16 operands;
-- ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16;
+- ``gemm_bf16.cu`` — the staged products on bf16 operands, the seeded
+  stage's bf16 form and the bf16 generator;
+- ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16,
+  seeded or not;
 
 on the headers ``gemm.cuh`` (the shared f32 tile), ``gemm_bf16.cuh`` (the
 bf16 tiles) and ``rand.cuh`` (the Ω generator):
@@ -62,6 +64,10 @@ SIGNATURES = {
         "gemm_nn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
         "gemm_tn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
         "gemm_tn_bf16_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        # as proj_stage_seeded_f32 and omega_fill_f32, bf16 x, slab and out
+        "proj_stage_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64,
+                                   _ptr],
+        "omega_fill_bf16": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
     },
     "recompute_f32": {
         # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, stream
@@ -76,6 +82,11 @@ SIGNATURES = {
         # accumulate, stream
         "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
                                  _i64, _i64, _i64, _int, _ptr],
+        # the same arguments, on bf16 x and slab (and a2 of the power form)
+        "projgram_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
+                                 _i64, _i64, _i64, _int, _ptr],
+        "power_recompute_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64,
+                                        _i64, _i64, _i64, _i64, _int, _ptr],
     },
 }
 #: Each library's ``cudaGetErrorString``.

@@ -1,6 +1,7 @@
 // The bf16-operand forms of the staged products on Hopper (sm_90a): bf16 X
-// and Q (or A and P), exact products summed in f32, f32 output.  Three C
-// entries over the tiles of gemm_bf16.cuh, launched by six Python forms:
+// and Q (or A and P), exact products summed in f32, f32 output.  Five C
+// entries over the tiles of gemm_bf16.cuh and the generator of rand.cuh,
+// launched by eight Python forms:
 //
 //   gemm_nn_bf16      tile 1  ← proj_stage[bf16]   replaces src/repro/kernels/powerpass.py
 //                                                    _proj_stage_kernel  (P = X·Q)
@@ -13,6 +14,22 @@
 //                             ← gram_sweep[bf16]   replaces src/repro/kernels/projgram.py
 //                                                    _gram_sweep_kernel  (C = Pᵀ·P)
 //   gemm_tn_bf16_f32  tile 3  ← powerpass_sweep[bf16,f32]  (ΔY = Aᵀ·P, A bf16, P f32)
+//   proj_stage_seeded_bf16    ← proj_stage_seeded[bf16]  replaces
+//                     tile 1       src/repro/kernels/powerpass.py
+//                                  _proj_stage_seeded_kernel at q_dtype=bfloat16
+//                                  (P = X·bf16(Ω(seed)))
+//   omega_fill_bf16           ← rand.omega_fill(dtype=bfloat16), counted as
+//                                  omega_fill[bf16]: src/repro/kernels/rand.py
+//                                  normal_tile cast once to bf16
+//
+// The seeded stage makes bf16 Ω(seed) in K-slabs of `slab_rows` rows
+// (SEEDED_SLAB = 4096: 17 MB at k̃ = 2060) with omega_fill (bf16) into a
+// scratch the wrapper allocates, and contracts each slab with tile 1 over a
+// column window of X; every slab after the first CONTINUES P's chains
+// (gemm_bf16.cuh), so proj_stage_seeded[bf16](x, seed) ≡
+// proj_stage[bf16](x, omega_fill(seed, bf16)) bitwise.  It is bound by the
+// tensor cores as proj_stage[bf16] is, plus the generator's int32 work
+// (rand.cuh); one call issues 2·⌈K / slab_rows⌉ launches.
 //
 // The sharded fit's collectives (core/rcca_dist.py) call the bf16 × bf16
 // forms; a one-rank model axis calls the fused chunk updates, whose staged
@@ -27,10 +44,12 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "rand.cuh"
 
 using gemm_bf16::launch_mma;
 using gemm_f32::ACCUMULATE;
 using gemm_f32::bf16_bits;
+using gemm_f32::CONTINUE;
 using gemm_f32::launch_gemm;
 using gemm_f32::OVERWRITE;
 
@@ -59,6 +78,36 @@ int gemm_tn_bf16_f32(const void* x, const void* y, void* o, long long M, long lo
   return accumulate
       ? launch_gemm<true, ACCUMULATE, bf16_bits>(x, y, o, M, N, K, M, ACCUMULATE, st)
       : launch_gemm<true, OVERWRITE, bf16_bits>(x, y, o, M, N, K, M, OVERWRITE, st);
+}
+
+// P (M×N, f32) = X (M×K, bf16) · bf16(Ω(seed)) with Ω (K×N) made slab by
+// slab into `slab` (≥ min(K, slab_rows) × N bf16): omega_fill (bf16), then
+// tile 1 over X's column window, continuing P's chains.  slab_rows must be a
+// positive multiple of gemm_bf16::BK, so that slab edges fall on BK steps.
+int proj_stage_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
+                           long long slab_rows, long long M, long long N, long long K,
+                           void* stream) {
+  if (slab_rows <= 0 || slab_rows % gemm_bf16::BK != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  for (long long k0 = 0; k0 < K; k0 += slab_rows) {
+    const long long ks = K - k0 < slab_rows ? K - k0 : slab_rows;
+    const cudaError_t err = rand_f32::launch_omega_fill((bf16_bits*)slab, ks, N,
+                                                        (uint32_t)k0, K, N, s0, s1, st);
+    if (err != cudaSuccess) return (int)err;
+    const bf16_bits* window = (const bf16_bits*)x + k0;  // X[:, k0 : k0 + ks], stride K
+    const int rc = k0 == 0 ? launch_mma<false, OVERWRITE>(window, slab, p, M, N, ks, K, st)
+                           : launch_mma<false, CONTINUE>(window, slab, p, M, N, ks, K, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// out (rows×cols, bf16) = bf16(Ω(seed)[r0 : r0 + rows, 0 : cols]), 0 outside
+// (d, kt).
+int omega_fill_bf16(void* out, long long rows, long long cols, unsigned r0, long long d,
+                    long long kt, unsigned s0, unsigned s1, void* stream) {
+  return (int)rand_f32::launch_omega_fill((bf16_bits*)out, rows, cols, r0, d, kt, s0, s1,
+                                          (cudaStream_t)stream);
 }
 
 const char* gemm_bf16_error_string(int code) {

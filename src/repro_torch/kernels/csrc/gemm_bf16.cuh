@@ -1,11 +1,12 @@
 // The bf16-operand tiles of the port: bf16 X and Q (or A and P), f32
 // accumulation, f32 output — what the reference's Pallas kernels compute on
 // bf16 operands (`preferred_element_type=jnp.float32`).  Three tiles serve
-// the seven bf16 forms:
+// the ten bf16 forms (seven unseeded, three seeded):
 //
 //   tile 1  Y (M×N) = X (M×K) · Q (K×N), both bf16, on the tensor cores
-//           (mma_tile<false, ·>): proj_stage, matmul_nn, and phase 1 of the
-//           fused recompute kernels (recompute_f32.cu);
+//           (mma_tile<false, ·>): proj_stage, matmul_nn, the seeded stage's
+//           slabs (gemm_bf16.cu), and phase 1 of the fused recompute
+//           kernels, seeded or not (recompute_f32.cu);
 //   tile 2  Y (M×N) (+)= Aᵀ · P with A (K×M) and P (K×N) both bf16, K the
 //           row axis, on the tensor cores (mma_tile<true, ·>):
 //           powerpass_sweep(bf16 P), matmul_tn, gram_sweep (A = P);
@@ -45,6 +46,17 @@
 // Bitwise equality with the f32 tile is not a contract: the sum inside one
 // mma is not an fmaf chain.
 //
+// Continued chains (CONTINUE).  The seeded forms contract Ω slab by slab:
+// each slab is one launch over a column window of X, and every slab after
+// the first CONTINUES — it loads each accumulator element from Y where the
+// epilogue stored it and goes on adding one mma per 16-deep step.  Since a
+// step's unit is one mma from zero plus one IEEE add, the chain is the one
+// launch over the whole K would form, bit for bit, when the slab edges fall
+// on BK boundaries (the C entries check slab_rows % BK == 0), so no step
+// straddles two slabs and the masked zeros of the last step lie where the
+// materialized product has them.  Hence seeded ≡ the materialized bf16
+// product on the same bf16 Ω.
+//
 // What bounds it on this card: at the main path's shapes a bf16 product is
 // ~1,650 FLOP per byte of operands, above the tensor cores' balance point
 // (989 TFLOP/s ÷ 3.35 TB/s ≈ 295), so the bound is the tensor-core rate;
@@ -61,6 +73,7 @@ namespace gemm_bf16 {
 
 using gemm_f32::ACCUMULATE;
 using gemm_f32::bf16_bits;
+using gemm_f32::CONTINUE;
 using gemm_f32::OVERWRITE;
 
 constexpr int BM = 128;      // output rows per tile
@@ -174,8 +187,9 @@ __device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a)[4],
 // The tile at (m0, n0) of Y (+)= op(A) · B, Y row-major f32 with row stride N.
 //   A_KMAJOR = false: A is X (M × K) with row stride lda ≥ K — tile 1;
 //   A_KMAJOR = true:  A is (K × M) with row stride lda ≥ M — tile 2, Aᵀ·B.
-// B is (K × N) with row stride N.  MODE is OVERWRITE or ACCUMULATE (one add
-// into Y after the full contraction).  Every thread of the block calls it
+// B is (K × N) with row stride N.  MODE is OVERWRITE, ACCUMULATE (one add
+// into Y after the full contraction) or CONTINUE (the chains start from Y:
+// the seeded slabs after the first).  Every thread of the block calls it
 // with the same tile; it ends on a __syncthreads(), so the block may start
 // the next tile on the same staging at once.
 template <bool A_KMAJOR, int MODE>
@@ -184,11 +198,14 @@ __device__ __forceinline__ void mma_tile(const bf16_bits* __restrict__ A,
                                          float* __restrict__ Y, int64_t M, int64_t N,
                                          int64_t K, int64_t lda, int64_t m0, int64_t n0,
                                          Tiles& sm) {
-  static_assert(MODE == OVERWRITE || MODE == ACCUMULATE, "no continued bf16 chains");
+  static_assert(MODE == OVERWRITE || MODE == ACCUMULATE || MODE == CONTINUE, "a tile mode");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 2) * 64;  // the warp's rows within the tile
   const int wn = (warp & 3) * 32;   // and columns
+  // element r of fragment (i, j) is row g + 8·(r / 2), column 2·(lane % 4)
+  // + r % 2 of that 16 × 8 tile
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
 
   float acc[4][4][4];  // [m16 tile][n8 tile][fragment element]
 #pragma unroll
@@ -196,7 +213,11 @@ __device__ __forceinline__ void mma_tile(const bf16_bits* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+      for (int r = 0; r < 4; ++r) {
+        const int64_t gm = m0 + wm + i * 16 + g + (r >> 1) * 8;
+        const int64_t gn = n0 + wn + j * 8 + c2 + (r & 1);
+        acc[i][j][r] = (MODE == CONTINUE && gm < M && gn < N) ? Y[gm * N + gn] : 0.0f;
+      }
 
   uint4 ra[CHUNKS], rb[CHUNKS];
   fetch<A_KMAJOR>(A, B, M, N, K, lda, m0, n0, 0, ra, rb);
@@ -241,9 +262,8 @@ __device__ __forceinline__ void mma_tile(const bf16_bits* __restrict__ A,
     __syncthreads();
   }
 
-  // ---- epilogue: element r of fragment (i, j) is row g + 8·(r / 2), column
-  // 2·(lane % 4) + r % 2 of that 16 × 8 tile; one add into Y when accumulating
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  // ---- epilogue: the fragment layout of the loads above; one add into Y
+  // when accumulating
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll

@@ -6,7 +6,9 @@
 //                   kernels inline
 //   omega_fill      writes rows [r0, r0 + rows) × columns [0, cols) of Ω,
 //                   0 outside the logical (d, k̃): the materialized oracle
-//                   on the card (dense_omega) and the seeded stage's slabs
+//                   on the card (dense_omega) and the seeded stage's slabs;
+//                   in f32, or in bf16 (the reference's `.astype(q_dtype)`
+//                   of the f32 tile inside its seeded kernels)
 //
 // Ω[i, j] = √(−2·log(2 − f0)) · cos(2π·(f1 − 1)), where (b0, b1) =
 // Threefry-2x32-20(key = seed, counter = (i, j)) and f = bitcast((b >> 9) |
@@ -19,7 +21,7 @@
 //
 // What bounds it: integer operations.  One element is ~85 int32 operations
 // (20 rounds of add, funnel-shift rotate and xor, 5 key injections) plus
-// one logf, cosf and sqrtf; it reads nothing and writes 4 bytes.  The
+// one logf, cosf and sqrtf; it reads nothing and writes 4 bytes (2 in bf16).  The
 // int32 pipe runs at half the f32 issue rate, so the bound is the int32
 // operations over 64 lanes per SM per clock.  The kernel is one element
 // per thread, neighbouring threads on neighbouring columns (coalesced
@@ -27,6 +29,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,13 +91,41 @@ omega_fill_kernel(float* __restrict__ out, int64_t rows, int64_t cols, uint32_t 
   out[i * cols + j] = inside ? normal_elem(s0, s1, row, (uint32_t)j) : 0.0f;
 }
 
+// The same in bf16 (out holds the raw 16 bits): each element rounded once
+// from the f32 one, to nearest even — what torch's `.to(torch.bfloat16)` and
+// jnp's `.astype(jnp.bfloat16)` of the f32 Ω give, so the bf16 Ω is bitwise
+// omega_fill's f32 Ω cast on the card.  A kernel of its own, so that the
+// f32 kernel's code is the one it always was.
+__global__ void __launch_bounds__(FILL_COLS * FILL_ROWS)
+omega_fill_bf16_kernel(uint16_t* __restrict__ out, int64_t rows, int64_t cols, uint32_t r0,
+                       int64_t d, int64_t kt, uint32_t s0, uint32_t s1) {
+  const int64_t i = (int64_t)blockIdx.x * FILL_ROWS + threadIdx.y;
+  const int64_t j = (int64_t)blockIdx.y * FILL_COLS + threadIdx.x;
+  if (i >= rows || j >= cols) return;
+  const uint32_t row = r0 + (uint32_t)i;
+  const bool inside = (int64_t)row < d && j < kt;
+  const float v = inside ? normal_elem(s0, s1, row, (uint32_t)j) : 0.0f;
+  out[i * cols + j] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+inline dim3 omega_fill_grid(int64_t rows, int64_t cols) {
+  return dim3((unsigned)((rows + FILL_ROWS - 1) / FILL_ROWS),
+              (unsigned)((cols + FILL_COLS - 1) / FILL_COLS));
+}
+
 inline cudaError_t launch_omega_fill(float* out, int64_t rows, int64_t cols, uint32_t r0,
                                      int64_t d, int64_t kt, uint32_t s0, uint32_t s1,
                                      cudaStream_t stream) {
-  const dim3 block(FILL_COLS, FILL_ROWS);
-  const dim3 grid((unsigned)((rows + FILL_ROWS - 1) / FILL_ROWS),
-                  (unsigned)((cols + FILL_COLS - 1) / FILL_COLS));
-  omega_fill_kernel<<<grid, block, 0, stream>>>(out, rows, cols, r0, d, kt, s0, s1);
+  omega_fill_kernel<<<omega_fill_grid(rows, cols), dim3(FILL_COLS, FILL_ROWS), 0, stream>>>(
+      out, rows, cols, r0, d, kt, s0, s1);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_omega_fill(uint16_t* out, int64_t rows, int64_t cols, uint32_t r0,
+                                     int64_t d, int64_t kt, uint32_t s0, uint32_t s1,
+                                     cudaStream_t stream) {
+  omega_fill_bf16_kernel<<<omega_fill_grid(rows, cols), dim3(FILL_COLS, FILL_ROWS), 0,
+                           stream>>>(out, rows, cols, r0, d, kt, s0, s1);
   return cudaGetLastError();
 }
 

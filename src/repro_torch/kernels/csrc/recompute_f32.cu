@@ -14,11 +14,19 @@
 //   projgram_bf16         ← projgram[bf16]  the bf16-operand form of _projgram_kernel
 //   power_recompute_bf16  ← power_project_accumulate[bf16]
 //                                           the bf16-operand form of _powerpass_kernel
+//   projgram_seeded_bf16  ← projgram_seeded[bf16]
+//                                           _projgram_seeded_kernel at q_dtype=bfloat16
+//   power_recompute_seeded_bf16
+//                         ← power_project_accumulate_seeded[bf16]
+//                                           _powerpass_seeded_kernel at q_dtype=bfloat16
 //
 // The bf16 forms take bf16 X and Q (and A), keep P and the accumulators in
 // f32, and run phase 1 on the tensor cores (tile 1 of gemm_bf16.cuh, the
 // staged proj_stage[bf16]'s) and phase 2 on the f32 tile (A widened for the
 // power form, as powerpass_sweep[bf16,f32]); each is bitwise its staged pair.
+// Their seeded forms make Ω in bf16 slabs as the f32 ones do in f32 (below),
+// the slabs before the last contracted by tile 1, the last by the fused
+// launch, whose phase 1 continues P's chains (gemm_bf16.cuh CONTINUE).
 //
 // What the TPU kernels keep out of device memory: P.  They hold a
 // (256 × k̃p) P tile in VMEM scratch over the contraction and fold it into
@@ -142,28 +150,29 @@ int launch_recompute(const float* x, const float* q, float* p, const float* a2, 
                             phase_tiles(n, kt, m2), args, stream);
 }
 
-// The bf16 forms.  Phase 1: P (n × kt, f32) = X·Q with X (n × d) and Q
-// (d × kt) bf16, tile 1 of gemm_bf16.cuh — proj_stage[bf16]'s tile.
-// Barrier.  Phase 2 as above: Y (m2 × kt) (+)= A2ᵀ·P with the f32 tile, A2
-// bf16 (power_project_accumulate[bf16]: tile 3, powerpass_sweep[bf16,f32]'s)
-// or f32 (projgram[bf16]: A2 = P, gram_sweep's).  So each is bitwise its
-// staged pair, as in f32.
+// The bf16 forms.  Phase 1: P (n × kt, f32) = X·Q over k1 columns of X (n ×
+// ·, row stride ldx) with Q (k1 × kt), both bf16, tile 1 of gemm_bf16.cuh —
+// proj_stage[bf16]'s tile — in MODE1 (OVERWRITE, or CONTINUE for the last
+// slab of a seeded call).  Barrier.  Phase 2 as above: Y (m2 × kt) (+)=
+// A2ᵀ·P with the f32 tile, A2 bf16 (power_project_accumulate[bf16]: tile 3,
+// powerpass_sweep[bf16,f32]'s) or f32 (projgram[bf16]: A2 = P,
+// gram_sweep's).  So each is bitwise its staged pair, as in f32.
 union StagingBoth {
   Tiles f32;
   gemm_bf16::Tiles bf16;
 };
 
-template <int MODE2, typename TA2>
+template <int MODE1, int MODE2, typename TA2>
 __global__ void __launch_bounds__(THREADS, 2)
 recompute_bf16_kernel(const bf16_bits* __restrict__ X, const bf16_bits* __restrict__ Q,
                       float* P, const TA2* A2, float* __restrict__ Y, int64_t n, int64_t kt,
-                      int64_t d, int64_t m2, int64_t lda2) {
+                      int64_t k1, int64_t ldx, int64_t m2, int64_t lda2) {
   __shared__ __align__(16) StagingBoth sm;
   const int64_t tiles_n = (kt + BN - 1) / BN;
   const int64_t tiles_m1 = (n + BM - 1) / BM;
   for (int64_t t = blockIdx.x; t < tiles_m1 * tiles_n; t += gridDim.x)
-    gemm_bf16::mma_tile<false, OVERWRITE>(X, Q, P, n, kt, d, d, (t % tiles_m1) * BM,
-                                          (t / tiles_m1) * BN, sm.bf16);
+    gemm_bf16::mma_tile<false, MODE1>(X, Q, P, n, kt, k1, ldx, (t % tiles_m1) * BM,
+                                      (t / tiles_m1) * BN, sm.bf16);
   cg::this_grid().sync();  // every P tile written and visible
   const int64_t tiles_m2 = (m2 + BM - 1) / BM;
   for (int64_t t = blockIdx.x; t < tiles_m2 * tiles_n; t += gridDim.x)
@@ -171,27 +180,73 @@ recompute_bf16_kernel(const bf16_bits* __restrict__ X, const bf16_bits* __restri
                                  (t / tiles_m2) * BN, sm.f32);
 }
 
-template <int MODE2, typename TA2>
+template <int MODE1, int MODE2, typename TA2>
 int launch_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
-                          int64_t n, int64_t kt, int64_t d, int64_t m2, int64_t lda2,
-                          cudaStream_t stream) {
+                          int64_t n, int64_t kt, int64_t k1, int64_t ldx, int64_t m2,
+                          int64_t lda2, cudaStream_t stream) {
   const bf16_bits* X = (const bf16_bits*)x;
   const bf16_bits* Q = (const bf16_bits*)q;
   float* P = (float*)p;
   const TA2* A2 = (const TA2*)a2;
   float* Y = (float*)y;
-  void* args[] = {&X, &Q, &P, &A2, &Y, &n, &kt, &d, &m2, &lda2};
-  return launch_cooperative((const void*)recompute_bf16_kernel<MODE2, TA2>,
+  void* args[] = {&X, &Q, &P, &A2, &Y, &n, &kt, &k1, &ldx, &m2, &lda2};
+  return launch_cooperative((const void*)recompute_bf16_kernel<MODE1, MODE2, TA2>,
                             phase_tiles(n, kt, m2), args, stream);
 }
 
+template <int MODE1, typename TA2>
+int recompute_bf16_mode2(const void* x, const void* q, void* p, const void* a2, void* y,
+                         int64_t n, int64_t kt, int64_t k1, int64_t ldx, int64_t m2,
+                         int64_t lda2, int accumulate, cudaStream_t stream) {
+  return accumulate
+      ? launch_recompute_bf16<MODE1, ACCUMULATE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2,
+                                                       lda2, stream)
+      : launch_recompute_bf16<MODE1, OVERWRITE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2,
+                                                      lda2, stream);
+}
+
+// One fused bf16 launch: phase 1 in mode1 (OVERWRITE or CONTINUE) over k1
+// columns of X (row stride ldx), phase 2 accumulating into Y or not.
 template <typename TA2>
 int recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
-                   int64_t n, int64_t kt, int64_t d, int64_t m2, int64_t lda2, int accumulate,
-                   cudaStream_t stream) {
-  return accumulate
-      ? launch_recompute_bf16<ACCUMULATE, TA2>(x, q, p, a2, y, n, kt, d, m2, lda2, stream)
-      : launch_recompute_bf16<OVERWRITE, TA2>(x, q, p, a2, y, n, kt, d, m2, lda2, stream);
+                   int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1, int64_t m2,
+                   int64_t lda2, int accumulate, cudaStream_t stream) {
+  return mode1 == CONTINUE
+      ? recompute_bf16_mode2<CONTINUE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2, lda2,
+                                            accumulate, stream)
+      : recompute_bf16_mode2<OVERWRITE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2, lda2,
+                                             accumulate, stream);
+}
+
+// The seeded bf16 forms: bf16 Ω(seed) (d × kt) made slab by slab into
+// `slab` (≥ min(d, slab_rows) × kt bf16) by omega_fill (bf16); every slab but
+// the last contracted by tile 1 (continuing P's chains after the first), the
+// last by the fused launch, whose phase 1 continues them.
+template <typename TA2>
+int recompute_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
+                          long long slab_rows, const void* a2, void* y, long long n,
+                          long long kt, long long d, long long m2, long long lda2,
+                          int accumulate, cudaStream_t st) {
+  if (slab_rows <= 0 || slab_rows % gemm_bf16::BK != 0 || d <= 0)
+    return (int)cudaErrorInvalidValue;
+  for (long long k0 = 0; k0 < d; k0 += slab_rows) {
+    const long long ks = d - k0 < slab_rows ? d - k0 : slab_rows;
+    const cudaError_t err = rand_f32::launch_omega_fill((bf16_bits*)slab, ks, kt,
+                                                        (uint32_t)k0, d, kt, s0, s1, st);
+    if (err != cudaSuccess) return (int)err;
+    const bf16_bits* window = (const bf16_bits*)x + k0;  // X[:, k0 : k0 + ks], row stride d
+    const int mode1 = k0 == 0 ? OVERWRITE : CONTINUE;
+    int rc;
+    if (k0 + ks < d)
+      rc = mode1 == OVERWRITE
+          ? gemm_bf16::launch_mma<false, OVERWRITE>(window, slab, p, n, kt, ks, d, st)
+          : gemm_bf16::launch_mma<false, CONTINUE>(window, slab, p, n, kt, ks, d, st);
+    else
+      rc = recompute_bf16<TA2>(window, slab, p, a2, y, n, kt, ks, d, mode1, m2, lda2,
+                               accumulate, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 int recompute(const float* x, const float* q, float* p, const float* a2, float* y,
@@ -249,8 +304,8 @@ int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void*
 int projgram_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                   long long n, long long kt, long long d, long long m2, long long lda2,
                   int accumulate, void* stream) {
-  return recompute_bf16<float>(x, q, p, a2, y, n, kt, d, m2, lda2, accumulate,
-                               (cudaStream_t)stream);
+  return recompute_bf16<float>(x, q, p, a2, y, n, kt, d, d, OVERWRITE, m2, lda2,
+                               accumulate, (cudaStream_t)stream);
 }
 
 // recompute_f32 on bf16 B (as x), Q and A (as a2): P = B·Q on the tensor
@@ -258,8 +313,29 @@ int projgram_bf16(const void* x, const void* q, void* p, const void* a2, void* y
 int power_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                          long long n, long long kt, long long d, long long m2,
                          long long lda2, int accumulate, void* stream) {
-  return recompute_bf16<bf16_bits>(x, q, p, a2, y, n, kt, d, m2, lda2, accumulate,
-                                   (cudaStream_t)stream);
+  return recompute_bf16<bf16_bits>(x, q, p, a2, y, n, kt, d, d, OVERWRITE, m2, lda2,
+                                   accumulate, (cudaStream_t)stream);
+}
+
+// projgram_bf16 with Q = bf16(Ω(seed)) made slab by slab into `slab` (≥
+// min(d, slab_rows) × kt bf16).  slab_rows must be a positive multiple of
+// gemm_bf16::BK, so that slab edges fall on BK steps.
+int projgram_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
+                         long long slab_rows, const void* a2, void* y, long long n,
+                         long long kt, long long d, long long m2, long long lda2,
+                         int accumulate, void* stream) {
+  return recompute_seeded_bf16<float>(x, s0, s1, p, slab, slab_rows, a2, y, n, kt, d, m2,
+                                      lda2, accumulate, (cudaStream_t)stream);
+}
+
+// power_recompute_bf16 with Q = bf16(Ω(seed)), made as projgram_seeded_bf16
+// makes it.
+int power_recompute_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p,
+                                void* slab, long long slab_rows, const void* a2, void* y,
+                                long long n, long long kt, long long d, long long m2,
+                                long long lda2, int accumulate, void* stream) {
+  return recompute_seeded_bf16<bf16_bits>(x, s0, s1, p, slab, slab_rows, a2, y, n, kt, d,
+                                          m2, lda2, accumulate, (cudaStream_t)stream);
 }
 
 const char* recompute_error_string(int code) {

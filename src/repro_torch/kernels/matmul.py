@@ -70,7 +70,9 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 f32, bf16 = torch.float32, torch.bfloat16
 _NN = {(f32, f32): "gemm_nn_f32", (bf16, bf16): "gemm_nn_bf16"}
 #: The operand forms the CUDA kernels take: entry point → {operand dtypes,
-#: in the entry point's argument order → C function}.  The bf16 forms
+#: in the entry point's argument order → C function}.  A seeded entry
+#: point makes Ω in its data's dtype; ``omega_fill``'s one dtype is its
+#: output's.  The bf16 forms
 #: multiply exact bf16 products and sum them in f32 into an f32 output, as
 #: the reference's kernels do on bf16 operands; a bf16 A against an f32 P
 #: is the reference's promotion of the mixed product (``csrc/gemm_bf16.cu``).
@@ -82,12 +84,14 @@ FORMS = {
                         (bf16, f32): "gemm_tn_bf16_f32"},
     "matmul_tn": {(f32, f32): "gemm_tn_f32", (bf16, bf16): "gemm_tn_bf16"},
     "gram_sweep": {(f32,): "gemm_tn_f32", (bf16,): "gemm_tn_bf16"},
-    "proj_stage_seeded": {(f32,): "proj_stage_seeded_f32"},
+    "proj_stage_seeded": {(f32,): "proj_stage_seeded_f32", (bf16,): "proj_stage_seeded_bf16"},
     "projgram": {(f32, f32): "recompute_f32", (bf16, bf16): "projgram_bf16"},
-    "projgram_seeded": {(f32,): "recompute_seeded_f32"},
+    "projgram_seeded": {(f32,): "recompute_seeded_f32", (bf16,): "projgram_seeded_bf16"},
     "power_project_accumulate": {(f32, f32, f32): "recompute_f32",
                                  (bf16, bf16, bf16): "power_recompute_bf16"},
-    "power_project_accumulate_seeded": {(f32, f32): "recompute_seeded_f32"},
+    "power_project_accumulate_seeded": {(f32, f32): "recompute_seeded_f32",
+                                        (bf16, bf16): "power_recompute_seeded_bf16"},
+    "omega_fill": {(f32,): "omega_fill_f32", (bf16,): "omega_fill_bf16"},
 }
 _SHORT = {f32: "f32", bf16: "bf16"}
 
@@ -160,14 +164,14 @@ def gemm_nn(f: Form, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def gemm_nn_seeded(f: Form, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     """P = x·Ω(seed) on the card: x (M, K) → (M, kt) f32, Ω made in
-    K-slabs of :data:`SEEDED_SLAB` rows into a scratch allocated here
-    (one C call, 2·⌈K / SEEDED_SLAB⌉ CUDA launches)."""
+    K-slabs of :data:`SEEDED_SLAB` rows, in x's dtype, into a scratch
+    allocated here (one C call, 2·⌈K / SEEDED_SLAB⌉ CUDA launches)."""
     M, K = x.shape
     if K == 0:
         raise ValueError(f"{f.label}: empty contraction")
     _grid_ok(f.label, M, kt)
     out = torch.empty((M, kt), dtype=f32, device=x.device)
-    slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=f32, device=x.device)
+    slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
                  out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K, _stream(x))
     return out
@@ -194,10 +198,10 @@ def gemm_tn(f: Form, x: torch.Tensor, y: torch.Tensor,
 def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.Tensor,
               y: torch.Tensor, r0: int, r1: int, *, accumulate: bool = False) -> None:
     """One fused recompute launch on the card: P = x·q (q a (d, kt)
-    tensor, or a seed whose Ω is made in slabs), then rows [r0, r1) of y
-    (+)= a2[:, r0:r1]ᵀ·P.  ``p`` (n, kt) f32 receives P; a2 is (n, ·) and y
-    (·, kt) f32, both row-major.  A seeded call issues 2·⌈d / SEEDED_SLAB⌉
-    CUDA launches, the last of them the fused one."""
+    tensor, or a seed whose Ω is made in slabs of x's dtype), then rows
+    [r0, r1) of y (+)= a2[:, r0:r1]ᵀ·P.  ``p`` (n, kt) f32 receives P; a2
+    is (n, ·) and y (·, kt) f32, both row-major.  A seeded call issues
+    2·⌈d / SEEDED_SLAB⌉ CUDA launches, the last of them the fused one."""
     n, d = x.shape
     m2, lda2 = r1 - r0, a2.shape[1]
     a2_ptr, y_ptr = a2.data_ptr() + a2.element_size() * r0, y.data_ptr() + 4 * r0 * kt
@@ -205,7 +209,7 @@ def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.T
         build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr, y_ptr,
                      n, kt, d, m2, lda2, int(accumulate), _stream(x))
         return
-    slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=f32, device=x.device)
+    slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), q[0] & 0xFFFFFFFF, q[1] & 0xFFFFFFFF,
                  p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
                  int(accumulate), _stream(x))

@@ -26,8 +26,12 @@ the launches count under the bf16 form's name — ``proj_stage[bf16]``,
 ``power_project_accumulate[bf16]``, ``projgram[bf16]`` — except where the
 operand is the f32 P: the staged power chunk sweeps with
 ``powerpass_sweep[bf16,f32]`` (bf16 A, f32 P), and the final chunk's
-``gram_sweep`` and ``matmul_tn`` stay f32.  The seeded updates are f32
-only.
+``gram_sweep`` and ``matmul_tn`` stay f32.  The seeded updates make Ω in
+the chunk's dtype (``RCCAConfig.dtype``, the reference's ``q_dtype``): on
+bf16 chunks they count as
+``proj_stage_seeded[bf16]``, ``power_project_accumulate_seeded[bf16]`` and
+``projgram_seeded[bf16]``, beside the sweeps, Grams and cross term of
+the unseeded bf16 chunk.
 
 A recompute shape of several buckets counts one launch per bucket.  Each
 seeded entry-point launch issues 2·⌈d / 4096⌉ CUDA launches (an
@@ -109,9 +113,9 @@ def final_pass_chunk(a, b, Qa, Qb, *, schedule=None):
 
 
 def power_pass_chunk_seeded(a, b, seed_a, seed_b, *, kt: int, schedule=None, out=None):
-    """:func:`power_pass_chunk` against Ω(seed_a), Ω(seed_b) made on the
-    card slab by slab: ΔYa = Aᵀ(B Ω(seed_b)), ΔYb = Bᵀ(A Ω(seed_a)).  No
-    (d, k̃) tensor is made."""
+    """:func:`power_pass_chunk` against Ω(seed_a), Ω(seed_b) in the chunk's
+    dtype, made on the card slab by slab: ΔYa = Aᵀ(B Ω(seed_b)), ΔYb =
+    Bᵀ(A Ω(seed_a)).  No (d, k̃) tensor is made."""
     out_a, out_b = (None, None) if out is None else out
     dYa = power_project_accumulate_seeded(a, b, seed_b, kt, schedule=schedule, out=out_a)
     dYb = power_project_accumulate_seeded(b, a, seed_a, kt, schedule=schedule, out=out_b)
@@ -158,11 +162,9 @@ def _power_view(n, d_out, d_in, kt, seeded, schedule, dtype):
     if sched == "staged":
         return plan.plan_powerpass_staged(n, d_out, d_in, kt, accumulate=True,
                                           seeded=seeded, dtype=dtype), sched
-    if seeded:
-        return plan.plan_power_project_accumulate_seeded(n, d_out, d_in, kt,
-                                                         accumulate=True), sched
-    return plan.plan_power_project_accumulate(n, d_out, d_in, kt, accumulate=True,
-                                              dtype=dtype), sched
+    rec = (plan.plan_power_project_accumulate_seeded if seeded
+           else plan.plan_power_project_accumulate)
+    return rec(n, d_out, d_in, kt, accumulate=True, dtype=dtype), sched
 
 
 def _final_view(n, d, kt, seeded, schedule, dtype):
@@ -170,9 +172,8 @@ def _final_view(n, d, kt, seeded, schedule, dtype):
              choose_projgram_schedule(n, d, kt, seeded=seeded, dtype=dtype))
     if sched == "staged":
         return plan.plan_projgram_staged(n, d, kt, seeded=seeded, dtype=dtype), sched
-    if seeded:
-        return plan.plan_projgram_seeded(n, d, kt), sched
-    return plan.plan_projgram(n, d, kt, dtype=dtype), sched
+    rec = plan.plan_projgram_seeded if seeded else plan.plan_projgram
+    return rec(n, d, kt, dtype=dtype), sched
 
 
 def _join_schedules(*scheds):
@@ -197,8 +198,6 @@ def chunk_cost(kind: str, n: int, da: int, db: int, kt: int, *, engine: str = "k
     per shape: treat the returned dict as read-only."""
     if engine != "kernels":
         return {"flops": None, "bytes": None, "kernels": [], "schedule": None}
-    if seeded and dtype != plan.F32:
-        raise TypeError("the seeded updates take float32 operands only")
     if kind == "power":
         pa, sa = _power_view(n, da, db, kt, seeded, schedule, dtype)
         pb, sb = _power_view(n, db, da, kt, seeded, schedule, dtype)

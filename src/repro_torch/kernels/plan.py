@@ -7,8 +7,8 @@ FLOPs it does (and how many of them on the tensor cores), and the bytes
 it moves, reckoned as each input read once and each output written once,
 at 4 bytes per f32 and 2 per bf16 element.  A ``plan_*`` function
 returns the launches one call of the entry point of that name issues, in
-order; the unseeded ones take the operands' ``dtype``, as the
-reference's plans do.
+order; each takes the operands' ``dtype`` (a seeded plan's Ω slabs are of
+the same dtype), as the reference's plans do.
 
 Plans come from the port's own tiles (``csrc/gemm.cuh``: a 128 × 128
 output tile per 256-thread block, 16,640 bytes of staging;
@@ -38,9 +38,10 @@ FILL_BLOCK = (64, 4)  # rand.cuh omega_fill: columns × rows per block
 #: 2 per SM (``__launch_bounds__(256, 2)``) × 132 SMs.  The launcher asks
 #: the occupancy API at run time; the plans use this design value.
 RESIDENT_BLOCKS = 2 * 132
-#: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060, inside the
-#: H100's 50 MB L2.  A multiple of the kernel's contraction step (16), so
-#: slab edges keep each element's FMA chain (the C side checks).
+#: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060 in f32 (17 MB
+#: in bf16), inside the H100's 50 MB L2.  A multiple of both tiles'
+#: staging depth (16 in f32, 32 in bf16), so slab edges keep each
+#: element's chain (the C side checks).
 SEEDED_SLAB = 4096
 
 #: The largest accumulator bucket — rows × k̃p of ΔY (da × k̃p) or of
@@ -130,11 +131,12 @@ def itemsize(dtype: torch.dtype) -> int:
 
 def gemm_nn(M: int, N: int, K: int, *, cont: bool = False, dtype=F32) -> LaunchPlan:
     """P (M×N, f32) = X (M×K)·Q (K×N), both of ``dtype`` (bf16: on the
-    tensor cores); ``cont`` continues P's chains (reads P; f32 only)."""
+    tensor cores); ``cont`` continues P's chains (reads P)."""
     flops = 2 * M * N * K
     if dtype == BF16:
         return LaunchPlan("gemm_nn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (THREADS,),
-                          SMEM_BYTES_BF16, flops, 2 * (M * K + K * N) + 4 * M * N,
+                          SMEM_BYTES_BF16, flops,
+                          2 * (M * K + K * N) + 4 * M * N * (2 if cont else 1),
                           tc_flops=flops)
     itemsize(dtype)
     return LaunchPlan("gemm_nn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
@@ -160,10 +162,12 @@ def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
                       nbytes)
 
 
-def omega_fill(rows: int, cols: int) -> LaunchPlan:
-    """Rows × cols of Ω, written once; its work is integer, not FLOPs."""
-    return LaunchPlan("omega_fill", (cdiv(rows, FILL_BLOCK[1]), cdiv(cols, FILL_BLOCK[0])),
-                      FILL_BLOCK, 0, 0, 4 * rows * cols)
+def omega_fill(rows: int, cols: int, dtype=F32) -> LaunchPlan:
+    """Rows × cols of Ω in ``dtype``, written once; its work is integer,
+    not FLOPs."""
+    return LaunchPlan("omega_fill" if dtype == F32 else "omega_fill_bf16",
+                      (cdiv(rows, FILL_BLOCK[1]), cdiv(cols, FILL_BLOCK[0])),
+                      FILL_BLOCK, 0, 0, itemsize(dtype) * rows * cols)
 
 
 def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
@@ -194,14 +198,16 @@ def _per_bucket(rows: int, kt: int, one_bucket) -> tuple[LaunchPlan, ...]:
     return tuple(out)
 
 
-def _seeded(n: int, d: int, kt: int, last) -> tuple[LaunchPlan, ...]:
-    """The slab launches of a seeded call: omega_fill then the NN launch
-    per slab, ``last(k1, cont)`` contracting the last slab."""
+def _seeded(n: int, d: int, kt: int, last, dtype=F32) -> tuple[LaunchPlan, ...]:
+    """The slab launches of a seeded call on operands of ``dtype``:
+    omega_fill then the NN launch per slab, ``last(k1, cont)`` contracting
+    the last slab."""
     out = []
     for k0 in range(0, d, SEEDED_SLAB):
         ks = min(SEEDED_SLAB, d - k0)
-        out.append(omega_fill(ks, kt))
-        out.append(gemm_nn(n, kt, ks, cont=k0 > 0) if k0 + ks < d else last(ks, k0 > 0))
+        out.append(omega_fill(ks, kt, dtype))
+        out.append(gemm_nn(n, kt, ks, cont=k0 > 0, dtype=dtype) if k0 + ks < d
+                   else last(ks, k0 > 0))
     return tuple(out)
 
 
@@ -214,8 +220,10 @@ def plan_proj_stage(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, 
     return (gemm_nn(n, kt, d, dtype=dtype),)
 
 
-def plan_proj_stage_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
-    return _seeded(n, d, kt, lambda ks, cont: gemm_nn(n, kt, ks, cont=cont))
+def plan_proj_stage_seeded(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    """The seeded stage on X of ``dtype``, Ω made in slabs of ``dtype``."""
+    return _seeded(n, d, kt, lambda ks, cont: gemm_nn(n, kt, ks, cont=cont, dtype=dtype),
+                   dtype)
 
 
 def plan_powerpass_sweep(n: int, da: int, kt: int, *, accumulate: bool = False, dtype=F32,
@@ -251,15 +259,19 @@ def plan_projgram(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ..
         n, kt, d, r1 - r0, w * (n * d + d * kt) + 4 * (n * kt + (r1 - r0) * kt), kernel),))
 
 
-def plan_projgram_seeded(n: int, d: int, kt: int) -> tuple[LaunchPlan, ...]:
-    """Per C bucket, the slabs of a seeded call; the last slab's fused
-    launch reads X's window, the slab and P, and writes P and the rows
-    of C."""
+def plan_projgram_seeded(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    """Per C bucket, the slabs of a seeded call on X of ``dtype``; the
+    last slab's fused launch reads X's window, the slab and P, and writes
+    P and the rows of C."""
+    w = itemsize(dtype)
+    kernel = "recompute_f32" if dtype == F32 else "projgram_bf16"
+
     def last(r0, r1):
         return lambda ks, cont: recompute(
             n, kt, ks, r1 - r0,
-            4 * (n * ks + ks * kt + n * kt * (2 if cont else 1) + (r1 - r0) * kt))
-    return _per_bucket(kt, kt, lambda r0, r1: _seeded(n, d, kt, last(r0, r1)))
+            w * (n * ks + ks * kt) + 4 * (n * kt * (2 if cont else 1) + (r1 - r0) * kt),
+            kernel)
+    return _per_bucket(kt, kt, lambda r0, r1: _seeded(n, d, kt, last(r0, r1), dtype))
 
 
 def plan_power_project_accumulate(n: int, da: int, db: int, kt: int, *,
@@ -277,22 +289,27 @@ def plan_power_project_accumulate(n: int, da: int, db: int, kt: int, *,
 
 
 def plan_power_project_accumulate_seeded(n: int, da: int, db: int, kt: int, *,
-                                         accumulate: bool = False) -> tuple[LaunchPlan, ...]:
-    y = 2 if accumulate else 1
+                                         accumulate: bool = False,
+                                         dtype=F32) -> tuple[LaunchPlan, ...]:
+    """Per ΔY bucket, the slabs of a seeded call on A and B of ``dtype``;
+    the last slab's fused launch reads B's window, the slab, P (when it
+    continues) and the bucket's columns of A, and writes its rows of ΔY."""
+    y, w = 2 if accumulate else 1, itemsize(dtype)
+    kernel = "recompute_f32" if dtype == F32 else "power_recompute_bf16"
 
     def last(r0, r1):
         m2 = r1 - r0
         return lambda ks, cont: recompute(
             n, kt, ks, m2,
-            4 * (n * ks + ks * kt + (n * kt if cont else 0) + n * m2 + y * m2 * kt))
-    return _per_bucket(da, kt, lambda r0, r1: _seeded(n, db, kt, last(r0, r1)))
+            w * (n * ks + ks * kt + n * m2) + 4 * ((n * kt if cont else 0) + y * m2 * kt),
+            kernel)
+    return _per_bucket(da, kt, lambda r0, r1: _seeded(n, db, kt, last(r0, r1), dtype))
 
 
 def plan_projgram_staged(n: int, d: int, kt: int, *, seeded: bool = False,
                          dtype=F32) -> tuple[LaunchPlan, ...]:
     """The stage on X and Q of ``dtype``, then the Gram of the f32 P."""
-    stage = plan_proj_stage_seeded(n, d, kt) if seeded else plan_proj_stage(n, d, kt,
-                                                                           dtype=dtype)
+    stage = (plan_proj_stage_seeded if seeded else plan_proj_stage)(n, d, kt, dtype=dtype)
     return stage + plan_gram_sweep(n, kt)
 
 
@@ -300,7 +317,6 @@ def plan_powerpass_staged(n: int, da: int, db: int, kt: int, *, accumulate: bool
                           seeded: bool = False, dtype=F32) -> tuple[LaunchPlan, ...]:
     """The stage on B and Q of ``dtype``, then the sweep of A (of
     ``dtype``) against the f32 P."""
-    stage = plan_proj_stage_seeded(n, db, kt) if seeded else plan_proj_stage(n, db, kt,
-                                                                            dtype=dtype)
+    stage = (plan_proj_stage_seeded if seeded else plan_proj_stage)(n, db, kt, dtype=dtype)
     return stage + plan_powerpass_sweep(n, da, kt, accumulate=accumulate, dtype=dtype,
                                         p_dtype=F32)

@@ -25,8 +25,10 @@ nothing is padded.
 Operands are f32 or bf16 (``matmul.FORMS``): bf16 X and Q give an f32 P
 (tensor cores), the sweep takes bf16 A with a bf16 P (tensor cores) or
 an f32 P (A widened, CUDA cores), and the recompute takes bf16 A, B and
-Q; the seeded forms are f32 only.  The bf16 launches count under e.g.
-``proj_stage[bf16]``.
+Q.  The seeded forms make Ω in the data's dtype: in bf16 each Ω slab is
+made in f32 and rounded once, as the reference's ``.astype(q_dtype)``
+with ``q_dtype`` the config's dtype.  The bf16 launches count under e.g.
+``proj_stage[bf16]`` or ``proj_stage_seeded[bf16]``.
 """
 
 from __future__ import annotations
@@ -65,11 +67,11 @@ def powerpass_sweep(a: torch.Tensor, p: torch.Tensor, *,
 
 
 def proj_stage_seeded(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
-    """P = x·Ω(seed) in f32.  x: (n, d), seed: the view's two uint32
-    words → (n, k̃).  On the card, bitwise ``proj_stage(x,
-    omega_fill(seed, d, kt))``: the slabs continue each element's FMA
-    chain, so its order is the materialized product's.  One entry-point
-    launch issues 2·⌈d / ``plan.SEEDED_SLAB``⌉ CUDA launches."""
+    """P = x·Ω(seed) in f32, Ω in x's dtype.  x: (n, d), seed: the view's
+    two uint32 words → (n, k̃).  On the card, bitwise ``proj_stage(x,
+    omega_fill(seed, d, kt, dtype=x.dtype))``: the slabs continue each
+    element's chain, so its order is the materialized product's.  One
+    entry-point launch issues 2·⌈d / ``plan.SEEDED_SLAB``⌉ CUDA launches."""
     if on_cpu(x):
         return ref.proj_stage_seeded_ref(x, seed, kt)
     return gemm_nn_seeded(form("proj_stage_seeded", x), x, seed, kt)
@@ -89,23 +91,21 @@ def choose_powerpass_schedule(n: int, da: int, db: int, kt: int, *, seeded: bool
     on every call."""
     if len(plan.buckets(da, kt)) == 1:
         return "recompute"
-    if seeded:
-        rec = plan.plan_power_project_accumulate_seeded(n, da, db, kt, accumulate=accumulate)
-    else:
-        rec = plan.plan_power_project_accumulate(n, da, db, kt, accumulate=accumulate,
-                                                 dtype=dtype)
+    rec = (plan.plan_power_project_accumulate_seeded if seeded
+           else plan.plan_power_project_accumulate)(n, da, db, kt, accumulate=accumulate,
+                                                    dtype=dtype)
     staged = plan.plan_powerpass_staged(n, da, db, kt, accumulate=accumulate, seeded=seeded,
                                         dtype=dtype)
     return pick_schedule({"recompute": plan.weighted_cost(rec),
                           "staged": plan.weighted_cost(staged)})
 
 
-def _fused(entry: str, a: torch.Tensor, b: torch.Tensor, q, kt: int,
+def _fused(f, a: torch.Tensor, b: torch.Tensor, q, kt: int,
            out: torch.Tensor | None) -> torch.Tensor:
-    """The recompute schedule on the card: one fused launch per ΔY
-    bucket, each projecting P = b·q into an f32 scratch the launch keeps
-    in L2 and folding rows [r0, r1) of ΔY = aᵀP (into ``out`` if given)."""
-    f = form(entry, a, b, *((q,) if isinstance(q, torch.Tensor) else ()))
+    """The recompute schedule on the card, by form ``f``: one fused launch
+    per ΔY bucket, each projecting P = b·q (q a tensor or a seed) into an
+    f32 scratch the launch keeps in L2 and folding rows [r0, r1) of ΔY =
+    aᵀP (into ``out`` if given)."""
     (n, da), (n2, db) = a.shape, b.shape
     if n != n2 or (isinstance(q, torch.Tensor) and tuple(q.shape) != (db, kt)):
         raise ValueError(f"{f.label}: shapes a {tuple(a.shape)}, b {tuple(b.shape)} and "
@@ -136,8 +136,8 @@ def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, 
     n, da = a.shape
     kt = q.shape[1]
     host = on_cpu(a, b, q, *(() if out is None else (out,)))
-    if not host:
-        form("power_project_accumulate", a, b, q)  # the same forms under either schedule
+    # the same forms under either schedule
+    f = None if host else form("power_project_accumulate", a, b, q)
     sched = (plan.check_schedule(schedule) if schedule is not None else
              choose_powerpass_schedule(n, da, b.shape[1], kt, accumulate=out is not None,
                                        dtype=a.dtype))
@@ -146,28 +146,28 @@ def power_project_accumulate(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor, 
     if host:
         dY = ref.power_project_accumulate_ref(a, b, q)
         return dY if out is None else out.add_(dY)
-    return _fused("power_project_accumulate", a, b, q, kt, out)
+    return _fused(f, a, b, q, kt, out)
 
 
 def power_project_accumulate_seeded(a: torch.Tensor, b: torch.Tensor, seed, kt: int, *,
                                     schedule: str | None = None,
                                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """ΔY = aᵀ(b·Ω(seed)), Ω made on the card; bitwise
-    ``power_project_accumulate(a, b, omega_fill(seed, db, kt))`` under
-    either schedule.  Staged: :func:`proj_stage_seeded` then the sweep (2
-    entry-point launches).  Recompute: per ΔY bucket one call that makes
-    Ω slab by slab and contracts every slab but the last with the NN
-    kernel, the last with the fused launch (2·⌈db / 4096⌉ CUDA launches)."""
+    """ΔY = aᵀ(b·Ω(seed)), Ω in the data's dtype made on the card;
+    bitwise ``power_project_accumulate(a, b, omega_fill(seed, db, kt,
+    dtype=b.dtype))`` under either schedule.  Staged:
+    :func:`proj_stage_seeded` then the sweep (2 entry-point launches).
+    Recompute: per ΔY bucket one call that makes Ω slab by slab and
+    contracts every slab but the last with the NN kernel, the last with the
+    fused launch (2·⌈db / 4096⌉ CUDA launches)."""
     n, da = a.shape
     host = on_cpu(a, b, *(() if out is None else (out,)))
-    if not host:
-        form("power_project_accumulate_seeded", a, b)
+    f = None if host else form("power_project_accumulate_seeded", a, b)
     sched = (plan.check_schedule(schedule) if schedule is not None else
              choose_powerpass_schedule(n, da, b.shape[1], kt, seeded=True,
-                                       accumulate=out is not None))
+                                       accumulate=out is not None, dtype=a.dtype))
     if sched == "staged":
         return powerpass_sweep(a, proj_stage_seeded(b, seed, kt), out=out)
     if host:
         dY = ref.power_project_accumulate_seeded_ref(a, b, seed, kt)
         return dY if out is None else out.add_(dY)
-    return _fused("power_project_accumulate_seeded", a, b, seed, kt, out)
+    return _fused(f, a, b, seed, kt, out)

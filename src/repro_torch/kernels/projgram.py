@@ -12,7 +12,8 @@ Port of ``repro/kernels/projgram.py``.  Two schedules, bitwise equal:
 :func:`projgram` picks one per shape (:func:`choose_projgram_schedule`)
 unless told; :func:`projgram_seeded` is the same with Ω(seed) made on the
 card.  P is returned either way: the cross term F needs it.  On bf16
-X and Q (``projgram[bf16]``) P and C are f32, as in the reference
+X and Q (``projgram[bf16]``; seeded: ``projgram_seeded[bf16]``, Ω made in
+bf16 slabs) P and C are f32, as in the reference
 (``p_dtype=jnp.float32``); :func:`gram_sweep` also takes a bf16 P.
 """
 
@@ -43,18 +44,17 @@ def choose_projgram_schedule(n: int, d: int, kt: int, *, seeded: bool = False,
     authority of :func:`~.powerpass.choose_powerpass_schedule`)."""
     if len(plan.buckets(kt, kt)) == 1:
         return "recompute"
-    rec = (plan.plan_projgram_seeded(n, d, kt) if seeded
-           else plan.plan_projgram(n, d, kt, dtype=dtype))
+    rec = (plan.plan_projgram_seeded if seeded else plan.plan_projgram)(n, d, kt, dtype=dtype)
     staged = plan.plan_projgram_staged(n, d, kt, seeded=seeded, dtype=dtype)
     return pick_schedule({"recompute": plan.weighted_cost(rec),
                           "staged": plan.weighted_cost(staged)})
 
 
-def _fused(entry: str, x: torch.Tensor, q, kt: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The recompute schedule on the card: one fused launch per C
-    bucket, each projecting P into ``p`` (identically each time) and
-    forming rows [r0, r1) of C = PᵀP."""
-    f = form(entry, x, *((q,) if isinstance(q, torch.Tensor) else ()))
+def _fused(f, x: torch.Tensor, q, kt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recompute schedule on the card, by form ``f``: one fused
+    launch per C bucket, each projecting P = x·q (q a tensor or a seed)
+    into ``p`` (identically each time) and forming rows [r0, r1) of C =
+    PᵀP."""
     n, d = x.shape
     if isinstance(q, torch.Tensor) and tuple(q.shape) != (d, kt):
         raise ValueError(f"{f.label}: q must be ({d}, {kt}), got {tuple(q.shape)}")
@@ -83,22 +83,23 @@ def projgram(x: torch.Tensor, q: torch.Tensor, *,
         return p, gram_sweep(p)
     if on_cpu(x, q):
         return ref.projgram_ref(x, q)
-    return _fused("projgram", x, q, kt)
+    return _fused(form("projgram", x, q), x, q, kt)
 
 
 def projgram_seeded(x: torch.Tensor, seed, kt: int, *,
                     schedule: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(P, C) with P = x·Ω(seed), Ω made on the card; bitwise
-    ``projgram(x, omega_fill(seed, d, kt))`` under either schedule.
-    Staged: :func:`~.powerpass.proj_stage_seeded` then :func:`gram_sweep`.
+    """(P, C) with P = x·Ω(seed), Ω in x's dtype made on the card;
+    bitwise ``projgram(x, omega_fill(seed, d, kt, dtype=x.dtype))`` under
+    either schedule.  Staged:
+    :func:`~.powerpass.proj_stage_seeded` then :func:`gram_sweep`.
     Recompute: per C bucket one call that makes Ω slab by slab, the last
     slab contracted by the fused launch (2·⌈d / 4096⌉ CUDA launches)."""
     n, d = x.shape
     sched = (plan.check_schedule(schedule) if schedule is not None
-             else choose_projgram_schedule(n, d, kt, seeded=True))
+             else choose_projgram_schedule(n, d, kt, seeded=True, dtype=x.dtype))
     if sched == "staged":
         p = proj_stage_seeded(x, seed, kt)
         return p, gram_sweep(p)
     if on_cpu(x):
         return ref.projgram_seeded_ref(x, seed, kt)
-    return _fused("projgram_seeded", x, seed, kt)
+    return _fused(form("projgram_seeded", x), x, seed, kt)

@@ -27,6 +27,13 @@ Two versions of one function:
   :func:`omega_fill` (precise ``logf``/``cosf``/``sqrtf``, no FMA
   contraction).
 
+Ω in bf16 (the reference's ``q_dtype=bfloat16``) is the f32 element
+rounded once to bf16, to nearest even: on the card ``omega_fill(...,
+dtype=torch.bfloat16)`` rounds inside the generator (``omega_fill[bf16]``),
+bitwise ``omega_fill(...).to(torch.bfloat16)``.  Where the two packages'
+f32 elements differ by an ulp, their bf16 elements may differ by one bf16
+ulp, rarely.
+
 :func:`omega_seeds` derives the two per-view seeds from an integer seed
 exactly as ``repro.kernels.rand.seeds_from_key(jax.random.PRNGKey(seed))``
 does under ``jax_threefry_partitionable`` (jax ≥ 0.5): the key split and
@@ -119,22 +126,29 @@ def omega_tile(seed: Seed, d: int, kt: int, *, r0: int = 0, rows: int | None = N
 
 
 def omega_fill(seed: Seed, d: int, kt: int, *, r0: int = 0, rows: int | None = None,
-               cols: int | None = None, device=DEFAULT_DEVICE) -> torch.Tensor:
+               cols: int | None = None, dtype=torch.float32,
+               device=DEFAULT_DEVICE) -> torch.Tensor:
     """Rows [r0, r0 + rows) of Ω(seed) over columns [0, cols): a (rows,
-    cols) f32 tensor, 0.0 outside the logical (d, kt).  ``rows``
-    defaults to d − r0, ``cols`` to kt.
+    cols) tensor of ``dtype`` (each element made in f32 and rounded once),
+    0.0 outside the logical (d, kt).  ``rows`` defaults to d − r0, ``cols``
+    to kt.
 
-    On a CUDA device this launches ``omega_fill_f32`` (``csrc/rand.cuh``);
-    on the CPU it is :func:`omega_tile`.
+    On a CUDA device this launches ``omega_fill_f32`` or ``omega_fill_bf16``
+    (``csrc/rand.cuh``, counted as ``omega_fill`` / ``omega_fill[bf16]``;
+    another dtype raises :class:`TypeError`); on the CPU it is
+    :func:`omega_tile` cast to ``dtype``.
     """
     rows = d - r0 if rows is None else rows
     cols = kt if cols is None else cols
     dev = resolve_device(device)
     if dev.type == "cpu":
-        return omega_tile(seed, d, kt, r0=r0, rows=rows, cols=cols, device=dev)
-    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+        return omega_tile(seed, d, kt, r0=r0, rows=rows, cols=cols, device=dev).to(dtype)
+    from .matmul import cuda_form  # matmul imports this module through ref
+
+    f = cuda_form("omega_fill", dtype)
+    out = torch.empty((rows, cols), dtype=dtype, device=dev)
     if rows and cols:
-        build.launch("omega_fill", "omega_fill_f32", out.data_ptr(), rows, cols, r0 & M32,
+        build.launch(f.label, f.fn, out.data_ptr(), rows, cols, r0 & M32,
                      d, kt, seed[0] & M32, seed[1] & M32,
                      torch.cuda.current_stream(dev).cuda_stream)
     return out
@@ -142,10 +156,10 @@ def omega_fill(seed: Seed, d: int, kt: int, *, r0: int = 0, rows: int | None = N
 
 def dense_omega(seed: Seed, d: int, kt: int, dtype=torch.float32,
                 device=DEFAULT_DEVICE) -> torch.Tensor:
-    """The full (d, kt) Ω(seed), made in f32 and cast once to ``dtype``:
-    the materialized oracle of the seeded path.  On the card it is one
-    ``omega_fill`` launch."""
-    return omega_fill(seed, d, kt, device=device).to(dtype)
+    """The full (d, kt) Ω(seed), made in f32 and rounded once to
+    ``dtype``: the materialized oracle of the seeded path.  On the card it
+    is one ``omega_fill`` launch in ``dtype``."""
+    return omega_fill(seed, d, kt, dtype=dtype, device=device)
 
 
 def prng_key(seed: int) -> Seed:

@@ -23,8 +23,9 @@ def proj_stage_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def proj_stage_seeded_ref(x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     """P = x · Ω(seed) in f32 (``_proj_stage_seeded_kernel``), Ω made by
     the plain generator (``rand.omega_tile``, the plain ``omega_fill``)
-    on x's device."""
-    return proj_stage_ref(x, omega_tile(seed, x.shape[1], kt, device=x.device))
+    on x's device in f32 and rounded once to x's dtype."""
+    omega = omega_tile(seed, x.shape[1], kt, device=x.device)
+    return proj_stage_ref(x, omega.to(x.dtype))
 
 
 def powerpass_sweep_ref(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

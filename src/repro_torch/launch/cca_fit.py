@@ -3,6 +3,8 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --engine torch
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --omega seeded
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --compute-dtype bfloat16 --omega seeded
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --n-chunks 4  # Europarl width, card
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --p 910 --n-chunks 4
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --mode dist --ranks 4
@@ -21,6 +23,11 @@ Algorithm 1's q+1 data passes
 ``--seed`` under ``--omega`` (``materialized``: drawn on the device;
 ``seeded``: the counter-based Ω, made slab by slab inside pass 0's
 kernels; ``seeded-materialized``: the same Ω made up front).
+``--compute-dtype bfloat16`` runs the fit at ``RCCAConfig(dtype=bfloat16)``:
+rows are made in f32 and cast to bf16 view by view, Ω is made in f32 and
+cast once, and the products run the kernels' bf16 forms (seeded ones too)
+with f32 accumulation and statistics, as the reference's bf16 stream
+fit.
 
 ``--mode dist``: ``--ranks`` processes, laid out as ``--mesh`` (default:
 the reference's greedy ``make_host_mesh`` rule), each holding its block
@@ -29,8 +36,7 @@ of the rows and features and running
 ``--collective``, ``--microbatch`` and ``--compute-dtype`` (the dtype the
 passes cast each microbatch and Q to before the products: ``float32``,
 as the reference's default, or ``bfloat16``, whose products run the
-kernels' bf16 forms with f32 accumulation; stream mode takes float32
-only).  Each rank makes the same rows
+kernels' bf16 forms with f32 accumulation).  Each rank makes the same rows
 and Ω as stream mode, whole, and keeps its block; ranks make them one
 at a time.  On the card every rank gets ``cuda:r`` and NCCL when there
 are as many cards as ranks, else they share the cards over gloo, whose
@@ -72,8 +78,9 @@ from . import ranks
 from .mesh import data_axes, host_mesh_shape, model_axis
 
 
-#: ``--compute-dtype``: the dtype the sharded fit's passes cast each
-#: microbatch and Q to before the products.
+#: ``--compute-dtype``: the dtype of the products — stream mode's
+#: ``RCCAConfig.dtype``, or the dtype the sharded fit's passes cast each
+#: microbatch and Q to.
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -103,13 +110,14 @@ def _launched(counts: dict, before: dict) -> dict:
 def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         seed: int = 0, n_chunks: int | None = None, omega: str = "materialized") -> FitReport:
     """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks,
-    Ω from ``seed`` under ``omega``.  Pass 0's interval includes making Ω
-    (the seeded-materialized mode's two ``omega_fill`` launches)."""
+    Ω from ``seed`` under ``omega``, rows and Ω in ``wl.rcca.dtype``.
+    Pass 0's interval includes making Ω (the seeded-materialized mode's
+    two ``omega_fill`` launches)."""
     dev = resolve_device(device)
     cfg = wl.rcca
     n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
     data = DevicePlantedChunks(n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
-                               chunk=wl.chunk, device=dev)
+                               chunk=wl.chunk, dtype=cfg.dtype, device=dev)
     pass_seconds, pass_launches, pass_groups = [], [], []
     _sync(dev)
     marks = {"t": time.perf_counter(), "launches": kops.launch_counts()}
@@ -358,8 +366,8 @@ def main(argv=None):
     ap.add_argument("--microbatch", type=int, default=None,
                     help="dist mode: rows per microbatch (default: all of a rank's rows)")
     ap.add_argument("--compute-dtype", default="float32", choices=list(COMPUTE_DTYPES),
-                    help="dist mode: the dtype of the passes' products (bfloat16: bf16 "
-                         "operands, f32 accumulation); stream mode takes float32 only")
+                    help="the dtype of the passes' products (bfloat16: bf16 operands, f32 "
+                         "accumulation); stream mode runs RCCAConfig(dtype=...) in it")
     ap.add_argument("--gather", action="store_true",
                     help="dist mode: gather Xa, Xb over the model axis (on at --smoke)")
     ap.add_argument("--k", type=int, default=None,
@@ -378,14 +386,12 @@ def main(argv=None):
     overrides = {f: getattr(args, f) for f in ("k", "p", "q") if getattr(args, f) is not None}
     if args.center:
         overrides["center"] = True
+    if args.mode == "stream" and args.compute_dtype != "float32":
+        overrides["dtype"] = COMPUTE_DTYPES[args.compute_dtype]
     if overrides:
         wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, **overrides))
     cfg = wl.rcca
     t0 = time.perf_counter()
-    if args.mode == "stream" and args.compute_dtype != "float32":
-        raise SystemExit("--compute-dtype bfloat16 applies to dist mode: the stream fit at "
-                         "RCCAConfig(dtype=bfloat16) needs the bf16 forms of the seeded "
-                         "kernels, a later slice of the port")
     if args.mode == "dist":
         if args.omega != "materialized":
             raise SystemExit("--omega applies to stream mode; dist mode draws Ω whole "
@@ -410,6 +416,7 @@ def main(argv=None):
                   n_chunks=args.n_chunks, omega=args.omega)
         dt = time.perf_counter() - t0
         print(f"[cca] stream mode, engine={args.engine}, omega={args.omega}, "
+              f"compute_dtype={args.compute_dtype}, "
               f"device={args.device}, n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}) "
               f"da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}")
         for i, (sec, launches, (groups, host_s), sched) in enumerate(

@@ -30,7 +30,8 @@
 - **Plans and the rule.** bf16 byte counts; the rule's bf16 decisions at
   the Europarl and smoke shapes are the reference's.
 - **Launcher.** ``cca_fit --mode dist --compute-dtype bfloat16`` against
-  the API call; stream mode refuses bf16.
+  the API call; stream mode runs bf16 (``tests/test_torch_seeded_bf16.py``
+  holds its fits); float16 is refused.
 - **On the card** (skips without CUDA): each bf16 form against its plain
   version and the bitwise contracts, at ragged shapes.
 """
@@ -508,9 +509,13 @@ def test_launcher_dist_bf16_matches_the_api_call(capsys):
     assert 0 < gap <= 1e-3
 
 
-def test_launcher_refuses_bf16_in_stream_mode():
-    with pytest.raises(SystemExit, match="later slice"):
-        cca_fit.main(["--smoke", "--device", "cpu", "--compute-dtype", "bfloat16"])
+def test_launcher_runs_bf16_in_stream_mode_and_refuses_float16(capsys):
+    rep = cca_fit.main(["--smoke", "--device", "cpu", "--compute-dtype", "bfloat16",
+                        "--n-chunks", "2", "--q", "0"])
+    assert "compute_dtype=bfloat16" in capsys.readouterr().out
+    assert rep.n_chunks == 2 and rep.result.rho.shape == (smoke_config().rcca.k,)
+    with pytest.raises(SystemExit):
+        cca_fit.main(["--smoke", "--device", "cpu", "--compute-dtype", "float16"])
     with pytest.raises(ValueError, match="compute dtype"):
         cca_fit.fit_dist(smoke_config(), n_ranks=1, device="cpu", compute_dtype="float16")
 

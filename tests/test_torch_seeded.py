@@ -30,7 +30,7 @@ from repro_torch import kernels as tk
 from repro_torch.core import rcca as tr
 from repro_torch.data import PlantedCCAData
 from repro_torch.exec import PassEngine, StackedChunks
-from repro_torch.kernels import rand, ref
+from repro_torch.kernels import matmul, rand, ref
 
 RTOL = 1e-5
 SEED_A, SEED_B = rand.omega_seeds(11)
@@ -203,8 +203,22 @@ def test_omega_knob_and_seed_rules():
         tr.randomized_cca_streaming(A, A, cfg, Q, Q, seed=0, device="cpu")
     with pytest.raises(ValueError, match="or an integer seed"):
         tr.randomized_cca_streaming(A, A, cfg, device="cpu")
-    with pytest.raises(ValueError, match="float32"):
-        PassEngine(tr.RCCAConfig(k=2, p=2, dtype=torch.bfloat16), device="cpu", omega="seeded")
+
+
+def test_seeded_engine_takes_bf16_and_refuses_float16_on_the_card():
+    """A bf16 config runs the seeded kernels (Ω made in f32 and rounded
+    once to bf16, the data's dtype); f16 and f64 have no seeded kernel,
+    so on the card they raise ``TypeError``."""
+    eng = PassEngine(tr.RCCAConfig(k=2, p=2, dtype=torch.bfloat16), device="cpu",
+                     omega="seeded")
+    assert eng.seeds_in_slots
+    bf16 = torch.bfloat16
+    assert matmul.cuda_form("proj_stage_seeded", bf16).label == "proj_stage_seeded[bf16]"
+    for dt in (torch.float16, torch.float64):
+        for entry, n in (("proj_stage_seeded", 1), ("projgram_seeded", 1),
+                         ("power_project_accumulate_seeded", 2), ("omega_fill", 1)):
+            with pytest.raises(TypeError, match=entry):
+                matmul.cuda_form(entry, *[dt] * n)
 
 
 def test_init_q_modes():
