@@ -9,15 +9,23 @@ Phases, each of which fails the run by raising:
    host's memory (the merge stack's closed groups live there); turns
    TF32 off for every f32 product;
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (three ``nvcc`` started together) and counts the HMMA instructions of
-   each kernel in ``cuobjdump -sass``: the bf16 tensor-core kernels must
-   issue them, the f32 ones none;
+   (three ``nvcc`` started together), prints ptxas's registers and spills
+   for every instance of the staged f32 kernel (``gemm_ring.cuh``), and
+   counts the HMMA instructions of each kernel in ``cuobjdump -sass``: the
+   bf16 tensor-core kernels must issue them, the f32 ones none; then the
+   occupancy API's blocks per SM of each f32 tile must be the plan's
+   (``plan.F32_TILES``), so the printed waves are the card's;
 3. kernels — each of the four GEMM entry points against its plain
    PyTorch version on the card, at the main path's shapes (8192 rows,
    d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
    small shapes: max error, bitwise repeatability, median times beside
    the plain version, one ``torch.matmul`` of the same product
-   (yardstick only) and the bound;
+   (yardstick only) and the bound, and the tile ``plan.f32_tile`` picked
+   with its tile count and waves; then the old tile's witness at the main
+   path's k̃ = 2060: one ``power_project_accumulate`` recompute on the
+   narrow A (8192 × 1024), both phases on ``gemm.cuh``'s tile, BITWISE
+   ``powerpass_sweep(A, proj_stage(B, Q))`` on the staged kernels, which
+   covers the 12-column edge tile of N = 2060;
 4. omega — ``omega_fill`` makes the full (2^19, 2060) Ω(seed): within
    8 ulp of the plain generator on the card and, at three slabs, of the
    plain CPU ``dense_omega``; a slab at r0 = 2^18 + 16 is bitwise that
@@ -31,7 +39,9 @@ Phases, each of which fails the run by raising:
    ``projgram_seeded``, ``power_project_accumulate`` with and without
    ``out=``, ``power_project_accumulate_seeded``) at the p = 910 shapes
    (8192 × 2^19 → 970; the power pair's A 8192 × 1024), at a ragged shape
-   (333 × 9001 → 67) and at one of several buckets: each against its
+   (333 × 9001 → 67), at one of several buckets and at k̃ = 2060 (the
+   staged sweep on the 128 × 64 tile, ragged in rows and contraction): each
+   against its
    plain version (4·√K·u of the largest magnitude) and BITWISE against
    its staged pair (and, seeded, against the materialized recompute on
    ``omega_fill(seed)``), with times beside the staged pair's;
@@ -79,8 +89,9 @@ Phases, each of which fails the run by raising:
     launches bitwise, and bitwise matmul_nn ≡ proj_stage, matmul_tn ≡
     powerpass_sweep, gram_sweep(P) ≡ matmul_tn(P, P), recompute ≡ staged
     and ``out=`` ≡ acc + ΔY; times beside the plain version, a bf16
-    ``torch.matmul`` (yardstick only) and the bound (tensor-core FLOPs at
-    989 TFLOP/s, f32 ones at 67);
+    ``torch.matmul`` (yardstick only; for the mixed sweep an f32 one on A
+    upcast beforehand) and the bound (tensor-core FLOPs at 989 TFLOP/s,
+    f32 ones at 67);
 11. dist bf16 — ``cca_fit --mode dist --compute-dtype bfloat16``: at
     Europarl width on 1 × 1 × 2 (``unfused`` ≡ ``fused`` bitwise per rank,
     the bf16 launches per rank and pass, |Δρ| ≤ 1e-3 against the torch
@@ -115,7 +126,9 @@ Phases, each of which fails the run by raising:
     the f32 fit's.
 
 Every fit resets the launch counters just before it and reads them just
-after; the total wall time is printed at the end.
+after, and every kernels-engine f32 stream fit prints the first 16 hex
+digits of the sha256 of ρ's and of Xa's raw bytes; the total wall time is
+printed at the end.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON, and before that the card's name and power limit.
@@ -228,7 +241,8 @@ def time_ms(fn, reps: int) -> float:
 
 def cases(a, b, Qa, Qb):
     """Per entry point: (kernel call, plain call, library call, K, flops,
-    bytes) on the main path's operands — P = X·Q staged from the chunk.
+    bytes, output shape) on the main path's operands — P = X·Q staged from
+    the chunk.
     C = PᵀP is symmetric, so the Gram's work is its k̃(k̃+1)/2 distinct
     entries: n·k̃·(k̃+1) FLOPs and k̃(k̃+1)/2 words written."""
     from repro_torch.kernels import gram_sweep, matmul_tn, powerpass_sweep, proj_stage, ref
@@ -239,15 +253,16 @@ def cases(a, b, Qa, Qb):
     return {
         "proj_stage": (lambda: proj_stage(b, Qb), lambda: ref.proj_stage_ref(b, Qb),
                        lambda: b @ Qb, b.shape[1], 2 * n * b.shape[1] * kt,
-                       4 * (n * b.shape[1] + b.shape[1] * kt + n * kt)),
+                       4 * (n * b.shape[1] + b.shape[1] * kt + n * kt), (n, kt)),
         "powerpass_sweep": (lambda: powerpass_sweep(a, pb),
                             lambda: ref.powerpass_sweep_ref(a, pb), lambda: a.T @ pb,
-                            n, 2 * n * da * kt, 4 * (n * da + n * kt + da * kt)),
+                            n, 2 * n * da * kt, 4 * (n * da + n * kt + da * kt), (da, kt)),
         "gram_sweep": (lambda: gram_sweep(pb), lambda: ref.gram_sweep_ref(pb),
                        lambda: pb.T @ pb, n, n * kt * (kt + 1),
-                       4 * (n * kt + kt * (kt + 1) // 2)),
+                       4 * (n * kt + kt * (kt + 1) // 2), (kt, kt)),
         "matmul_tn": (lambda: matmul_tn(pa, pb), lambda: ref.matmul_tn_ref(pa, pb),
-                      lambda: pa.T @ pb, n, 2 * n * kt * kt, 4 * (2 * n * kt + kt * kt)),
+                      lambda: pa.T @ pb, n, 2 * n * kt * kt, 4 * (2 * n * kt + kt * kt),
+                      (kt, kt)),
     }
 
 
@@ -300,14 +315,15 @@ def phase_kernels(dev, a, b) -> dict:
         y = torch.randn((n, d), generator=g, device=dev)
         Qx = torch.randn((d, kt), generator=g, device=dev)
         Qy = torch.randn((d, kt), generator=g, device=dev)
-        for name, (kern, plain, _, K, _, _) in cases(x, y, Qx, Qy).items():
+        for name, (kern, plain, _, K, *_) in cases(x, y, Qx, Qy).items():
             check(name, kern, plain, K)
 
     wl = config()
     Qa, Qb = draw_omega(SEED, wl.da, wl.db, wl.rcca, device=dev)
     rows = {}
-    for name, (kern, plain, lib, K, flops, nbytes) in cases(a, b, Qa, Qb).items():
+    for name, (kern, plain, lib, K, flops, nbytes, shape) in cases(a, b, Qa, Qb).items():
         err = check(name, kern, plain, K)
+        print(tile_line(name, *shape), flush=True)
         heavy = flops > 1e12
         reps = 3 if heavy else 10
         t = {"ms": time_ms(kern, reps), "plain_ms": time_ms(plain, reps),
@@ -323,7 +339,30 @@ def phase_kernels(dev, a, b) -> dict:
     if not torch.equal(acc, acc0 + powerpass_sweep(a, pb)):
         raise AssertionError("powerpass_sweep(out=) is not acc + ΔY bitwise")
     print("[smoke] powerpass_sweep(out=acc) == acc + ΔY bitwise: True", flush=True)
+    old_tile_witness(a, b, Qb, pb)
     return rows
+
+
+def old_tile_witness(a, b, q, p) -> None:
+    """The staged kernels against the old tile at the main path's k̃: one
+    fused ``power_project_accumulate`` (both phases on ``gemm.cuh``'s tile)
+    on the narrow A against ``powerpass_sweep(A, P)`` with P =
+    ``proj_stage(B, Q)`` (``p``), bitwise."""
+    import torch
+
+    from repro_torch.kernels import plan, power_project_accumulate, powerpass_sweep
+
+    an = a[:, :DA_NARROW].contiguous()
+    kt = q.shape[1]
+    fused = power_project_accumulate(an, b, q, schedule="recompute")
+    staged = powerpass_sweep(an, p)
+    same = torch.equal(fused, staged)
+    print(tile_line("witness sweep", DA_NARROW, kt), flush=True)
+    print(f"[smoke] old-tile witness at k̃ = {kt}, A {tuple(an.shape)}: fused power pass "
+          f"({len(plan.buckets(DA_NARROW, kt))} launches, gemm.cuh's tile) == powerpass_sweep("
+          f"A, proj_stage(B, Q)) bitwise: {same}", flush=True)
+    if not same:
+        raise AssertionError("the staged kernels are not the old tile's chains bitwise")
 
 
 def ulp(x, y):
@@ -414,6 +453,7 @@ def phase_seeded(dev, b) -> dict:
     flops = 2 * n * d * kt
     row = dict(max_abs_err=err, **bound(flops, 4 * (n * d + n * kt), OMEGA_INT_OPS * d * kt),
                **t)
+    print(tile_line("proj_stage_seeded slab", n, kt), flush=True)
     print(f"[smoke] proj_stage_seeded: kernel {t['ms']:.3f} ms "
           f"({2 * -(-d // SEEDED_SLAB)} CUDA launches), plain {t['plain_ms']:.3f} ms, "
           f"library {t['library_ms']:.3f} ms (torch.matmul(x, Ω), Ω made beforehand), "
@@ -537,13 +577,16 @@ def phase_recompute(dev, a, b) -> dict:
     seed = rand.omega_seeds(SEED)[1]
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 17)
-    # (n, d, k̃, da): ragged; then 2 C buckets (k̃ = 1100) and 23 ΔY buckets
-    for n, d, kt, da in [(333, 9001, 67, 517), (333, 9001, 1100, 20000)]:
+    # (n, d, k̃, da): ragged; then 2 C buckets (k̃ = 1100) and 23 ΔY buckets;
+    # then k̃ = 2060, where the staged sweep takes the 128 × 64 tile
+    for n, d, kt, da in [(333, 9001, 67, 517), (333, 9001, 1100, 20000),
+                         (333, 9001, 2060, 20000)]:
         x = torch.randn((n, d), generator=g, device=dev)
         q = torch.randn((d, kt), generator=g, device=dev)
         xa = torch.randn((n, da), generator=g, device=dev)
         print(f"[smoke] fused at {(n, d, kt, da)}: {len(plan.buckets(kt, kt))} C bucket(s), "
               f"{len(plan.buckets(da, kt))} ΔY bucket(s)", flush=True)
+        print(tile_line("staged sweep", da, kt), flush=True)
         cases, omega = fused_cases(x, q, xa, seed)
         for name, (rec, staged, plain, _, Ks, *_) in cases.items():
             check_fused(name, rec, staged, plain, Ks)
@@ -613,8 +656,9 @@ def phase_matmul_nn(dev, a) -> dict:
     row = dict(max_abs_err=err, **bound(flops, 4 * (M * K + K * N + M * N)), **t)
     print(f"[smoke] matmul_nn at {(M, K)} → {N}: kernel {t['ms']:.3f} ms, plain "
           f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']}); {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
-          f"grid {-(-M // 128)} × {-(-N // 128)} tiles", flush=True)
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}); {flops / t['ms'] / 1e9:.1f} TFLOP/s",
+          flush=True)
+    print(tile_line("matmul_nn", M, N), flush=True)
     return row
 
 
@@ -774,10 +818,18 @@ def phase_bf16_kernels(dev, a16, b16) -> dict:
         reps = 3 if heavy else 10
         t = {"ms": time_ms(call, reps), "plain_ms": time_ms(plain, reps),
              "library_ms": None if lib is None else time_ms(lib, reps)}
+        if name == "powerpass_sweep[bf16,f32]":
+            # the yardstick on A upcast to f32 beforehand, as the seeded rows'
+            # on an Ω made beforehand
+            a32 = a16.float()
+            t["library_ms"] = time_ms(lambda: torch.matmul(a32.T, p32), reps)
+            del a32
+            print(tile_line(name, a16.shape[1], p32.shape[1]), flush=True)
         if pair_name == "its staged pair":
             t["staged_ms"] = time_ms(pair, reps)
         rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, tc_flops=tc_flops), **t)
-        lib_txt = "none" if lib is None else f"{t['library_ms']:.3f} ms (bf16 out)"
+        lib_txt = ("none" if t["library_ms"] is None else
+                   f"{t['library_ms']:.3f} ms ({'f32 A upcast' if lib is None else 'bf16 out'})")
         staged_txt = f", staged pair {t['staged_ms']:.3f} ms" if "staged_ms" in t else ""
         print(f"[smoke] {name}: kernel {t['ms']:.3f} ms{staged_txt}, plain "
               f"{t['plain_ms']:.3f} ms, library {lib_txt}, bound {rows[name]['bound_ms']:.3f} "
@@ -806,7 +858,17 @@ def run_fit(argv, label):
     print(f"[smoke] {label}: wall {wall:.3f} s, passes {rep.pass_seconds} s, "
           f"schedules {rep.pass_schedules}, peak memory {peak:.2f} GB, launches {launches}, "
           f"sum rho {SUM_RHO[label]:.6f}", flush=True)
+    if "torch" not in argv and "bfloat16" not in argv:  # a kernels-engine f32 fit
+        print(f"[smoke] {label}: sha256 rho {digest(rep.result.rho)}, Xa "
+              f"{digest(rep.result.Xa)}", flush=True)
     return rep, launches, peak, wall
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's raw bytes."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def fit_checks(rep, label, want_launches, want_schedules):
@@ -1529,10 +1591,69 @@ def phase_stream_bf16(dev) -> dict:
                 launches_smoke["power_project_accumulate_seeded[bf16]"]}
 
 
+def ring_spills() -> None:
+    """ptxas's registers and spills for each instance of the staged f32
+    kernel (``gemm_ring.cuh`` ``ring_kernel``), from the build's ``-Xptxas
+    -v`` output: NN or TN, its mode, its A type and its tile."""
+    import re
+
+    from repro_torch.kernels import build
+
+    modes = {"0": "overwrite", "1": "accumulate", "2": "continue"}
+    for lib, entry in build.BUILD_LOG.items():
+        fn, rows = None, []
+        for line in entry["log"].splitlines():
+            m = re.search(r"Function properties for (\S+)", line) or re.search(
+                r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn is None or "ring_kernel" not in fn:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if not (spill or regs):
+                continue
+            k = re.search(r"ring_kernelILb(\d)ELi(\d)E(\w)NS_4TileILi(\d+)ELi(\d+)ELi(\d)E", fn)
+            name = (f"{'TN' if k.group(1) == '1' else 'NN'} {modes[k.group(2)]} "
+                    f"{'bf16' if k.group(3) == 't' else 'f32'} A, {k.group(4)}×{k.group(5)}"
+                    if k else fn)
+            rows.append(f"{name}: " + (f"{spill.group(1)} B spill stores, {spill.group(2)} B "
+                                       f"spill loads" if spill else f"{regs.group(1)} registers"))
+        for row in rows:
+            print(f"[smoke] ptxas {lib}: {row}", flush=True)
+
+
+def tile_occupancy() -> None:
+    """Each f32 tile's blocks per SM on this card (the occupancy API) must be
+    the plan's, or the waves the rule models are not the card's."""
+    from repro_torch.kernels import build, plan
+
+    for tile, (bm, bn, threads, per_sm) in enumerate(plan.F32_TILES):
+        got = [build.blocks_per_sm(tn, tile) for tn in (False, True)]
+        print(f"[smoke] f32 tile {tile} ({bm}×{bn}, {threads} threads): blocks per SM NN/TN "
+              f"{got}, plan {per_sm}; {plan.ring_smem(tile)} B of shared memory asked",
+              flush=True)
+        if got != [per_sm, per_sm]:
+            raise AssertionError(f"f32 tile {tile}: {got} blocks per SM, the plan has {per_sm}")
+
+
+def tile_line(name: str, M: int, N: int) -> str:
+    """The tile ``plan.f32_tile`` picks for an M × N output, its tiles and waves."""
+    from repro_torch.kernels import plan
+
+    tile = plan.f32_tile(M, N)
+    bm, bn, _, per_sm = plan.F32_TILES[tile]
+    tiles, waves = plan.tile_waves(M, N, tile)
+    return (f"[smoke] {name} output {M}×{N}: tile {bm}×{bn} ({per_sm} per SM), {tiles} tiles, "
+            f"{waves} waves of {per_sm * plan.SMS}, {100 * plan.idle_share(M, N, tile):.1f} % "
+            "of the slots idle")
+
+
 def sass_hmma() -> None:
-    """HMMA instructions per kernel of the two libraries that hold bf16
-    kernels, from ``cuobjdump -sass``: the tensor-core tiles must issue
-    them, the f32 tile (CUDA cores, no TF32) none."""
+    """HMMA instructions per kernel of the three libraries, from
+    ``cuobjdump -sass``: the tensor-core tiles must issue them, the f32
+    kernels (CUDA cores, no TF32) and the generator none."""
     import re
 
     from repro_torch.kernels import build
@@ -1541,7 +1662,7 @@ def sass_hmma() -> None:
     if not tool.exists():
         print("[smoke] cuobjdump not found: SASS not checked", flush=True)
         return
-    for lib in ("gemm_bf16", "recompute_f32"):
+    for lib in ("gemm_f32", "gemm_bf16", "recompute_f32"):
         sass = subprocess.run([str(tool), "-sass", str(build._target(lib))], capture_output=True,
                               text=True, check=True).stdout
         counts, ops, fn = {}, set(), None
@@ -1596,7 +1717,9 @@ def main() -> int:
     for name, entry in build.BUILD_LOG.items():
         print(f"[smoke] nvcc {build.LIBRARIES[name].name} ({entry['seconds']:.2f} s):\n"
               f"{entry['log']}", flush=True)
+    ring_spills()
     sass_hmma()
+    tile_occupancy()
 
     from repro_torch.configs.europarl_cca import config
     from repro_torch.data import DevicePlantedChunks

@@ -10,8 +10,9 @@ interface, loaded with ``ctypes``:
 - ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16,
   seeded or not;
 
-on the headers ``gemm.cuh`` (the shared f32 tile), ``gemm_bf16.cuh`` (the
-bf16 tiles) and ``rand.cuh`` (the Ω generator):
+on the headers ``gemm_ring.cuh`` (the staged f32 products' pipelined
+kernel), ``gemm.cuh`` (the fused kernels' f32 tile), ``gemm_bf16.cuh``
+(the bf16 tiles) and ``rand.cuh`` (the Ω generator):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -44,7 +45,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "gemm_bf16": CSRC / "gemm_bf16.cu",
              "recompute_f32": CSRC / "recompute_f32.cu"}
 #: The headers every source may include; each goes into every digest.
-HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "rand.cuh")
+HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "gemm_ring.cuh",
+           CSRC / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,17 +55,23 @@ _ptr, _i64, _int, _u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctype
 #: C signatures of the entry points, by library.
 SIGNATURES = {
     "gemm_f32": {
-        "gemm_nn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
-        "gemm_tn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
-        # x, seed words, p, slab scratch, slab rows, M, N, K, stream
-        "proj_stage_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64, _ptr],
+        # x, q, p, M, N, K, tile, vec (plan.f32_tile, plan.copies), stream
+        "gemm_nn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _ptr],
+        # x, y, o, M, N, K, accumulate, tile, vec, stream
+        "gemm_tn_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _int, _ptr],
+        # x, seed words, p, slab scratch, slab rows, M, N, K, tile, vec, stream
+        "proj_stage_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64, _int,
+                                  _int, _ptr],
         # out, rows, cols, r0, d, kt, seed words, stream
         "omega_fill_f32": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
+        # tn, tile, int* out
+        "gemm_f32_blocks_per_sm": [_int, _int, _ptr],
     },
     "gemm_bf16": {
         "gemm_nn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
         "gemm_tn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
-        "gemm_tn_bf16_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        # as gemm_tn_f32, with a bf16 x
+        "gemm_tn_bf16_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _int, _ptr],
         # as proj_stage_seeded_f32 and omega_fill_f32, bf16 x, slab and out
         "proj_stage_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64,
                                    _ptr],
@@ -79,9 +87,9 @@ SIGNATURES = {
         "power_recompute_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
                                  _int, _ptr],
         # x, seed words, p, slab scratch, slab rows, a2, y, n, kt, d, m2, lda2,
-        # accumulate, stream
+        # accumulate, tile and vec of the slabs before the last, stream
         "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
-                                 _i64, _i64, _i64, _int, _ptr],
+                                 _i64, _i64, _i64, _int, _int, _int, _ptr],
         # the same arguments, on bf16 x and slab (and a2 of the power form)
         "projgram_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
                                  _i64, _i64, _i64, _int, _ptr],
@@ -163,6 +171,16 @@ def build() -> dict[str, ctypes.CDLL]:
         libs[name] = lib
     _LIBS.update(libs)
     return _LIBS
+
+
+def blocks_per_sm(tn: bool, tile: int) -> int:
+    """The blocks of the f32 NN (or TN) ring kernel on ``plan.F32_TILES[tile]``
+    that the card keeps resident on one SM, by the occupancy API."""
+    out = ctypes.c_int(0)
+    rc = build()["gemm_f32"].gemm_f32_blocks_per_sm(int(tn), tile, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed with CUDA error {rc}")
+    return out.value
 
 
 def launch(entry: str, fn: str, *args) -> None:

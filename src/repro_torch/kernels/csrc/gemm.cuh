@@ -1,21 +1,18 @@
-// The f32 output tile that every f32 GEMM of the port computes, and the
-// one-tile-per-block kernel around it.  Included by gemm_f32.cu (the staged
-// products), recompute_f32.cu (the fused recompute kernels) and, through
-// gemm_bf16.cuh, gemm_bf16.cu, so all run the same FMA chains: that is what
-// makes staged ≡ recompute bitwise.
+// The f32 output tile of the fused recompute kernels (recompute_f32.cu): one
+// 128 × 128 tile per 256-thread block, staged through one shared-memory stage
+// 16 deep in the contraction.  The staged products (gemm_nn_f32, gemm_tn_f32
+// and the bf16-A form of the TN product, "tile 3") run gemm_ring.cuh's
+// pipelined kernel instead; this tile stays only for the fused kernels, whose
+// cooperative launch sizes its grid from this tile's occupancy, until they
+// move onto the ring too.  The two compute the same FMA chains, so the fused
+// kernels' staged ≡ recompute checks hold gemm_ring.cuh's kernels bitwise
+// against this tile.
 //
-// The A operand may also be bf16 (TA = bf16_bits, the mixed TN form ΔY =
-// Aᵀ·P with A bf16 and P f32, "tile 3" of gemm_bf16.cuh): each element is
-// widened to f32 as it is staged, which is exact, and the FMA chains are
-// the f32 ones.  TA = float is the f32 tile as it was.
+// The A operand may also be bf16 (TA = bf16_bits, phase 2 of the fused bf16
+// power kernels): each element is widened to f32 as it is staged, which is
+// exact, and the FMA chains are the f32 ones.
 //
-// What bounds the tile on this card: arithmetic.  At the main path's shapes
-// (8192 rows, d = 2^19, k̃ ≈ 1000-2000) a P = X·Q or ΔY = Aᵀ·P is several
-// hundred FLOPs per byte of operands, far above the card's f32 balance
-// point (67 TFLOP/s ÷ 3.35 TB/s ≈ 20).  The reference is f32 end to end
-// and parity is held near 1e-5 relative, so the tensor cores (TF32 at
-// best) are out and the ceiling is the CUDA cores' f32 FMA rate.  The
-// design therefore spends its effort on FMA density, not on bytes:
+// The design:
 //
 //   * a 128×128 output tile per 256-thread block, staged through shared
 //     memory 16 deep in the contraction, so each operand element loaded
@@ -55,11 +52,8 @@ enum Mode : int {
   CONTINUE = 2,    // Σ starts from Y: the FMA chain goes on where it stopped
   RUNTIME = -1,    // as a template argument: the mode is the `mode` argument
 };
-// The TN launches fix the mode at compile time, the NN launches read it at
-// run time: the register allocation ptxas finds is better that way for
-// each.  With a fixed mode the TN kernels spill 0 and 8 bytes (24 bytes
-// more with a runtime mode, and slower); the NN kernel spilled 68 bytes
-// and its continue instance 252, and both ran slower (PERF.md).
+// The fused kernels fix phase 2's mode at compile time and read phase 1's at
+// run time (OVERWRITE, or CONTINUE for the last slab of a seeded call).
 
 // A block's shared-memory staging: 16,640 bytes.
 struct Tiles {
@@ -181,26 +175,6 @@ __device__ __forceinline__ void gemm_tile(const TA* __restrict__ A,
       *y = mode == ACCUMULATE ? *y + acc[i][j] : acc[i][j];
     }
   }
-}
-
-// One tile per block: grid (⌈M / BM⌉, ⌈N / BN⌉).
-template <bool A_KMAJOR, int MODE, typename TA = float>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_f32_kernel(const TA* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ Y, int64_t M, int64_t N, int64_t K,
-                int64_t lda, int mode_arg) {
-  __shared__ __align__(16) Tiles sm;
-  gemm_tile<A_KMAJOR, MODE>(A, B, Y, M, N, K, lda, mode_arg, (int64_t)blockIdx.x * BM,
-                            (int64_t)blockIdx.y * BN, sm);
-}
-
-template <bool A_KMAJOR, int MODE, typename TA = float>
-int launch_gemm(const void* a, const void* b, void* y, long long M, long long N,
-                long long K, long long lda, int mode, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  gemm_f32_kernel<A_KMAJOR, MODE, TA><<<grid, THREADS, 0, stream>>>(
-      (const TA*)a, (const float*)b, (float*)y, M, N, K, lda, mode);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace gemm_f32

@@ -13,7 +13,9 @@
 //                                                    _mm_tn_kernel  (O = Xᵀ·P)
 //                             ← gram_sweep[bf16]   replaces src/repro/kernels/projgram.py
 //                                                    _gram_sweep_kernel  (C = Pᵀ·P)
-//   gemm_tn_bf16_f32  tile 3  ← powerpass_sweep[bf16,f32]  (ΔY = Aᵀ·P, A bf16, P f32)
+//   gemm_tn_bf16_f32  tile 3  ← powerpass_sweep[bf16,f32]  (ΔY = Aᵀ·P, A bf16, P f32):
+//                               gemm_tn_f32's ring kernel (gemm_ring.cuh) with A
+//                               staged as bf16 and widened as it is read
 //   proj_stage_seeded_bf16    ← proj_stage_seeded[bf16]  replaces
 //                     tile 1       src/repro/kernels/powerpass.py
 //                                  _proj_stage_seeded_kernel at q_dtype=bfloat16
@@ -44,13 +46,13 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "gemm_ring.cuh"
 #include "rand.cuh"
 
 using gemm_bf16::launch_mma;
 using gemm_f32::ACCUMULATE;
 using gemm_f32::bf16_bits;
 using gemm_f32::CONTINUE;
-using gemm_f32::launch_gemm;
 using gemm_f32::OVERWRITE;
 
 extern "C" {
@@ -70,14 +72,15 @@ int gemm_tn_bf16(const void* x, const void* y, void* o, long long M, long long N
                     : launch_mma<true, OVERWRITE>(x, y, o, M, N, K, M, st);
 }
 
-// O (M×N, f32) (+)= Xᵀ · Y with X (K×M) bf16 and Y (K×N) f32: the f32 tile
-// with X widened as it is staged.
+// O (M×N, f32) (+)= Xᵀ · Y with X (K×M) bf16 and Y (K×N) f32: the f32 TN
+// kernel with X staged as bf16 and widened as its fragments are read, on tile
+// `tile`, 16-byte copies where `vec` allows (as gemm_tn_f32).
 int gemm_tn_bf16_f32(const void* x, const void* y, void* o, long long M, long long N,
-                     long long K, int accumulate, void* stream) {
+                     long long K, int accumulate, int tile, int vec, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   return accumulate
-      ? launch_gemm<true, ACCUMULATE, bf16_bits>(x, y, o, M, N, K, M, ACCUMULATE, st)
-      : launch_gemm<true, OVERWRITE, bf16_bits>(x, y, o, M, N, K, M, OVERWRITE, st);
+      ? gemm_ring::launch<true, ACCUMULATE, bf16_bits>(tile, x, y, o, M, N, K, M, vec, st)
+      : gemm_ring::launch<true, OVERWRITE, bf16_bits>(tile, x, y, o, M, N, K, M, vec, st);
 }
 
 // P (M×N, f32) = X (M×K, bf16) · bf16(Ω(seed)) with Ω (K×N) made slab by

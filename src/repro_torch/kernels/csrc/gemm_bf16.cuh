@@ -10,10 +10,12 @@
 //   tile 2  Y (M×N) (+)= Aᵀ · P with A (K×M) and P (K×N) both bf16, K the
 //           row axis, on the tensor cores (mma_tile<true, ·>):
 //           powerpass_sweep(bf16 P), matmul_tn, gram_sweep (A = P);
-//   tile 3  Y (+)= Aᵀ · P with A bf16 and P f32, on the CUDA cores: the f32
-//           tile of gemm.cuh with A widened to f32 as it is staged (exact,
-//           so this is the reference's promotion of the mixed product):
-//           powerpass_sweep(f32 P) and phase 2 of the fused power recompute.
+//   tile 3  Y (+)= Aᵀ · P with A bf16 and P f32, on the CUDA cores, A
+//           widened to f32 exactly (so this is the reference's promotion of
+//           the mixed product): powerpass_sweep(f32 P) on gemm_ring.cuh's TN
+//           kernel (A staged as bf16, widened as it is read) and phase 2 of
+//           the fused power recompute on gemm.cuh's tile (widened as it is
+//           staged); the same f32 chains either way.
 //
 // Tiles 1 and 2 (one function): a 128 × 128 output tile per 256-thread
 // block, 8 warps of 64 × 32, each warp 4 × 4 mma.sync.m16n8k16 (bf16 in,

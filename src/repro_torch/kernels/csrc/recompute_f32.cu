@@ -55,9 +55,10 @@
 // persistent launch is the simple one that projects each P element once.
 //
 // Bitwise contract: staged ≡ recompute.  Both phases run gemm.cuh's tile,
-// so each P element is gemm_nn's chain (ascending d from 0.0f) and each C
-// or ΔY element is gemm_tn's (ascending rows from 0.0f); with `accumulate`
-// the tile adds into Y once after the chain, as powerpass_sweep(out=) does.
+// whose FMA chains are the staged kernels' (gemm_ring.cuh), so each P
+// element is gemm_nn's chain (ascending d from 0.0f) and each C or ΔY
+// element is gemm_tn's (ascending rows from 0.0f); with `accumulate` the
+// tile adds into Y once after the chain, as powerpass_sweep(out=) does.
 // No atomics anywhere.
 //
 // Buckets.  A recompute at a shape of several buckets (the wrapper's loop,
@@ -67,9 +68,9 @@
 //
 // Seeded variants: Ω(seed) is made once per chunk (per bucket) in K-slabs
 // of `slab_rows` rows by omega_fill (rand.cuh), as proj_stage_seeded makes
-// it; every slab but the last is contracted by the plain NN launch
-// continuing P's chains, and the last by the fused launch, whose phase 1
-// continues them.  So the result is bitwise the materialized recompute on
+// it; every slab but the last is contracted by the staged NN launch
+// (gemm_ring.cuh) continuing P's chains, and the last by the fused launch,
+// whose phase 1 continues them.  So the result is bitwise the materialized recompute on
 // omega_fill(seed), and one call issues 2·⌈d / slab_rows⌉ launches.
 //
 // What bounds it: arithmetic, as gemm.cuh says of the tile; phase 2 adds
@@ -87,6 +88,7 @@
 
 #include "gemm.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_ring.cuh"
 #include "rand.cuh"
 
 namespace {
@@ -276,12 +278,15 @@ int recompute_f32(const void* x, const void* q, void* p, const void* a2, void* y
 
 // recompute_f32 with Q = Ω(seed) (d×kt) made slab by slab into `slab`
 // (≥ min(d, slab_rows) × kt floats).  slab_rows must be a positive
-// multiple of BK, so that slab edges fall on BK steps.
+// multiple of the ring's BK (so of gemm_tile's), so that slab edges fall on
+// staging steps.  Every slab but the last is contracted by gemm_nn_f32's ring kernel on tile `tile`, 16-byte
+// copies where `vec` allows (gemm_f32.cu), the last by the fused launch.
 int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
                          long long slab_rows, const void* a2, void* y, long long n,
                          long long kt, long long d, long long m2, long long lda2,
-                         int accumulate, void* stream) {
-  if (slab_rows <= 0 || slab_rows % BK != 0 || d <= 0) return (int)cudaErrorInvalidValue;
+                         int accumulate, int tile, int vec, void* stream) {
+  if (slab_rows <= 0 || slab_rows % gemm_ring::BK != 0 || d <= 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   for (long long k0 = 0; k0 < d; k0 += slab_rows) {
     const long long ks = d - k0 < slab_rows ? d - k0 : slab_rows;
@@ -290,10 +295,14 @@ int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void*
     if (err != cudaSuccess) return (int)err;
     const float* window = (const float*)x + k0;  // X[:, k0 : k0 + ks], row stride d
     const int mode1 = k0 == 0 ? OVERWRITE : CONTINUE;
-    const int rc = k0 + ks < d
-        ? launch_gemm<false, RUNTIME>(window, slab, p, n, kt, ks, d, mode1, st)
-        : recompute(window, (const float*)slab, (float*)p, (const float*)a2, (float*)y, n,
-                    kt, ks, d, mode1, m2, lda2, accumulate, st);
+    int rc;
+    if (k0 + ks < d)
+      rc = mode1 == OVERWRITE
+          ? gemm_ring::launch<false, OVERWRITE>(tile, window, slab, p, n, kt, ks, d, vec, st)
+          : gemm_ring::launch<false, CONTINUE>(tile, window, slab, p, n, kt, ks, d, vec, st);
+    else
+      rc = recompute(window, (const float*)slab, (float*)p, (const float*)a2, (float*)y, n,
+                     kt, ks, d, mode1, m2, lda2, accumulate, st);
     if (rc != 0) return rc;
   }
   return 0;

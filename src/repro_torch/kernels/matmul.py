@@ -8,8 +8,9 @@ on the main path it computes the final pass's cross term F = PaᵀPb.
 ``pallas_matmul``; the sharded fit's unfused collective
 (``ops.project``) runs it.  The TPU kernel blocks (i, j, k) with a VMEM
 accumulator carried across the k steps; on Hopper the same function is
-``gemm_nn_f32``, which contracts each 128 × 128 output tile's whole K
-range in one block (one ascending FMA chain per element), so
+``gemm_nn_f32``, which contracts each output tile's whole K range in one
+block (one ascending FMA chain per element, on the tile
+:func:`~.plan.f32_tile` picks), so
 ``matmul_nn`` is bitwise ``powerpass.proj_stage`` on the same operands
 and counts its launches under its own name.  It is bound by f32
 operations (2·M·K·N FLOPs against 4·(MK + KN + MN) bytes).
@@ -31,12 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import build, ref
-from .plan import SEEDED_SLAB, TILE
-
-# the f32 tile's column tiles ride gridDim.y (the bf16 tiles' row tiles do,
-# checked in C)
-_MAX_GRID_Y = 65535
+from . import build, plan, ref
+from .plan import SEEDED_SLAB
 
 #: The H100's f32 balance point: 67 TFLOP/s on the CUDA cores ÷ 3.35 TB/s
 #: of HBM ≈ 20 FLOP per byte (the reference's 240 is a TPU's).  The f32
@@ -94,6 +91,11 @@ FORMS = {
     "omega_fill": {(f32,): "omega_fill_f32", (bf16,): "omega_fill_bf16"},
 }
 _SHORT = {f32: "f32", bf16: "bf16"}
+#: The C functions that launch the staged f32 kernel (``csrc/gemm_ring.cuh``):
+#: each takes the tile :func:`~.plan.f32_tile` picks for its output and the
+#: copy widths :func:`~.plan.copies` allows its operands.
+RING = frozenset({"gemm_nn_f32", "gemm_tn_f32", "gemm_tn_bf16_f32", "proj_stage_seeded_f32",
+                  "recompute_seeded_f32"})
 
 
 class Form(NamedTuple):
@@ -143,10 +145,22 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _grid_ok(entry: str, M: int, N: int) -> None:
+    """A launch grid has an output to cover (the C launchers bound its size)."""
     if M == 0 or N == 0:
         raise ValueError(f"{entry}: empty output ({M}, {N})")
-    if -(-N // TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{entry}: {N} output columns exceed the launch grid")
+
+
+def _ring(fn: str, M: int, N: int, a: tuple[int, int, int], b: tuple[int, int, int]) -> tuple:
+    """The staged f32 kernel's two extra arguments for C function ``fn`` on
+    an M × N output — the tile and the copy widths of A and B, each
+    ``(address, row stride, itemsize)`` — or none for another kernel."""
+    if fn not in RING:
+        return ()
+    return plan.f32_tile(M, N), plan.copies(a, b)
+
+
+def _operand(t: torch.Tensor, row_stride: int) -> tuple[int, int, int]:
+    return t.data_ptr(), row_stride, t.element_size()
 
 
 def gemm_nn(f: Form, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -158,7 +172,7 @@ def gemm_nn(f: Form, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     _grid_ok(f.label, M, N)
     out = torch.empty((M, N), dtype=f32, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, N, K,
-                 _stream(x))
+                 *_ring(f.fn, M, N, _operand(x, K), _operand(q, N)), _stream(x))
     return out
 
 
@@ -173,7 +187,8 @@ def gemm_nn_seeded(f: Form, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     out = torch.empty((M, kt), dtype=f32, device=x.device)
     slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
-                 out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K, _stream(x))
+                 out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K,
+                 *_ring(f.fn, M, kt, _operand(x, K), _operand(slab, kt)), _stream(x))
     return out
 
 
@@ -191,7 +206,8 @@ def gemm_tn(f: Form, x: torch.Tensor, y: torch.Tensor,
     else:
         out = torch.empty((M, N), dtype=f32, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                 int(accumulate), _stream(x))
+                 int(accumulate), *_ring(f.fn, M, N, _operand(x, M), _operand(y, N)),
+                 _stream(x))
     return out
 
 
@@ -212,7 +228,8 @@ def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.T
     slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
     build.launch(f.label, f.fn, x.data_ptr(), q[0] & 0xFFFFFFFF, q[1] & 0xFFFFFFFF,
                  p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
-                 int(accumulate), _stream(x))
+                 int(accumulate), *_ring(f.fn, n, kt, _operand(x, d), _operand(slab, kt)),
+                 _stream(x))
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,16 @@ returns the launches one call of the entry point of that name issues, in
 order; each takes the operands' ``dtype`` (a seeded plan's Ω slabs are of
 the same dtype), as the reference's plans do.
 
-Plans come from the port's own tiles (``csrc/gemm.cuh``: a 128 × 128
-output tile per 256-thread block, 16,640 bytes of staging;
-``csrc/gemm_bf16.cuh``: the same output tile, 18,944 bytes), never from
-the TPU's ``VMEM_BLOCK_ELEMS``.  Only the buckets of the recompute
-schedule share a number with the reference, and for a reason of their
-own (:data:`ONE_BUCKET_ELEMS`).
+Plans come from the port's own tiles, never from the TPU's
+``VMEM_BLOCK_ELEMS``: the staged f32 products (``gemm_nn_f32``,
+``gemm_tn_f32``, ``gemm_tn_bf16_f32``) from the tile :func:`f32_tile`
+picks out of :data:`F32_TILES` (``csrc/gemm_ring.cuh``); the fused
+recompute kernels from ``csrc/gemm.cuh``'s 128 × 128 tile per 256-thread
+block (16,640 bytes of staging, :data:`TILE`, :data:`SMEM_BYTES`,
+:data:`RESIDENT_BLOCKS`); the bf16 tensor-core tiles from
+``csrc/gemm_bf16.cuh``'s (the same output tile, 18,944 bytes).  Only the
+buckets of the recompute schedule share a number with the reference, and
+for a reason of their own (:data:`ONE_BUCKET_ELEMS`).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import dataclasses
 import torch
 
 F32, BF16 = torch.float32, torch.bfloat16
-TILE = 128  # output rows and columns per block (BM = BN)
+TILE = 128  # gemm.cuh and gemm_bf16.cuh: output rows and columns per block (BM = BN)
 THREADS = 256
 SMEM_BYTES = 4 * 16 * (TILE + 4) + 4 * 16 * TILE  # gemm.cuh Tiles: As + Bs
 SMEM_BYTES_BF16 = 2 * TILE * (32 + 8) + 2 * 32 * (TILE + 8)  # gemm_bf16.cuh Tiles: A + B
@@ -38,10 +42,21 @@ FILL_BLOCK = (64, 4)  # rand.cuh omega_fill: columns × rows per block
 #: 2 per SM (``__launch_bounds__(256, 2)``) × 132 SMs.  The launcher asks
 #: the occupancy API at run time; the plans use this design value.
 RESIDENT_BLOCKS = 2 * 132
+#: The staged f32 products' tile shapes (``csrc/gemm_ring.cuh`` Tile0,
+#: Tile1, in this order): (rows, columns, threads, blocks per SM).  Eight
+#: warps per SM either way, 8 × 8 outputs per thread; the launch pins the
+#: blocks per SM (it asks for enough shared memory that no more fit).
+F32_TILES = ((128, 128, 256, 1), (128, 64, 128, 2))
+SMS = 132  # H100 SXM
+RING_BK = 32  # contraction steps per stage of the ring (tails still pad to gemm.cuh's 16)
+RING_STAGES = 4
+#: The H100's shared memory per SM and the part of it reserved per block:
+#: what the launch's pin is computed from (the C side asks the card).
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 #: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060 in f32 (17 MB
-#: in bf16), inside the H100's 50 MB L2.  A multiple of both tiles'
-#: staging depth (16 in f32, 32 in bf16), so slab edges keep each
-#: element's chain (the C side checks).
+#: in bf16), inside the H100's 50 MB L2.  A multiple of every tile's
+#: staging depth (16 in f32, the ring's and the fused tile's; 32 in bf16),
+#: so slab edges keep each element's chain (the C side checks).
 SEEDED_SLAB = 4096
 
 #: The largest accumulator bucket — rows × k̃p of ΔY (da × k̃p) or of
@@ -83,6 +98,66 @@ def cdiv(a: int, b: int) -> int:
 def padded(x: int) -> int:
     """``x`` rounded up to the tile."""
     return cdiv(x, TILE) * TILE
+
+
+def tile_waves(M: int, N: int, tile: int) -> tuple[int, int]:
+    """(tiles, waves) of an M × N output on ``F32_TILES[tile]``: the
+    waves are ⌈tiles ÷ resident blocks⌉."""
+    bm, bn, _, per_sm = F32_TILES[tile]
+    tiles = cdiv(M, bm) * cdiv(N, bn)
+    return tiles, cdiv(tiles, per_sm * SMS)
+
+
+def idle_share(M: int, N: int, tile: int) -> float:
+    """The share of the output slots that ``tile``'s waves leave idle on an
+    M × N output: 1 − M·N ÷ (waves × resident blocks × BM·BN), the edge
+    tiles' unused columns and the last wave's empty blocks together."""
+    bm, bn, _, per_sm = F32_TILES[tile]
+    return 1 - M * N / (tile_waves(M, N, tile)[1] * per_sm * SMS * bm * bn)
+
+
+def f32_tile(M: int, N: int) -> int:
+    """The index in :data:`F32_TILES` of the tile for an M × N output of a
+    staged f32 product: each launch is modelled as ⌈tiles ÷ resident
+    blocks⌉ waves × one tile's time, a tile's time as its outputs × its
+    blocks per SM (the SM's FFMA rate shared among them), and the cheapest
+    wins; a tie goes to the larger tile, which stages fewer bytes per FMA.
+    The chains do not depend on the tile, so neither do the bits.
+
+    At the main path's outputs (8192 × 2060 and 4096 × 2060, 2^19 × 2060,
+    8192 × 970) the tile it picks leaves at most 10 % of the slots idle; at
+    2060 × 2060 (``gram_sweep``, ``matmul_tn``), which is just over two
+    waves' worth for either shape, at most 35 %.  Today's single 128 × 128
+    tile at two blocks per SM left 22 %, 35 %, 5 %, 8 % and 51 %."""
+    def cost(i):
+        bm, bn, _, per_sm = F32_TILES[i]
+        return tile_waves(M, N, i)[1] * per_sm * bm * bn, -bm * bn
+
+    return min(range(len(F32_TILES)), key=cost)
+
+
+def ring_smem(tile: int, a_itemsize: int = 4) -> int:
+    """The dynamic shared memory a launch on ``tile`` asks for: its ring of
+    :data:`RING_STAGES` stages, or more, so that no more than its blocks
+    per SM fit (``csrc/gemm_ring.cuh`` ``prepare``)."""
+    bm, bn, _, per_sm = F32_TILES[tile]
+    ring = RING_STAGES * RING_BK * (bm * a_itemsize + bn * 4)
+    return max(ring, SMEM_PER_SM // (per_sm + 1) - SMEM_RESERVED + 16)
+
+
+def vector_copies(ptr: int, row_stride: int, itemsize: int) -> bool:
+    """Whether a row-major operand at address ``ptr`` with ``row_stride``
+    elements per row can be staged 16 bytes per copy: a 16-byte aligned
+    base and row stride.  Else the kernel copies 4 bytes (an f32 element)
+    at a time, or a bf16 element through a register."""
+    return ptr % 16 == 0 and row_stride * itemsize % 16 == 0
+
+
+def copies(a: tuple[int, int, int], b: tuple[int, int, int]) -> int:
+    """The ``vec`` argument of a staged f32 launch: bit 0 for A, bit 1 for B,
+    each ``(address, row stride, itemsize)``, set where
+    :func:`vector_copies` allows 16-byte copies."""
+    return int(vector_copies(*a)) | 2 * int(vector_copies(*b))
 
 
 def bucket_rows(kt: int) -> int:
@@ -139,8 +214,18 @@ def gemm_nn(M: int, N: int, K: int, *, cont: bool = False, dtype=F32) -> LaunchP
                           2 * (M * K + K * N) + 4 * M * N * (2 if cont else 1),
                           tc_flops=flops)
     itemsize(dtype)
-    return LaunchPlan("gemm_nn_f32", (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES,
-                      flops, 4 * (M * K + K * N + M * N * (2 if cont else 1)))
+    return _ring_plan("gemm_nn_f32", M, N, 4, flops,
+                      4 * (M * K + K * N + M * N * (2 if cont else 1)))
+
+
+def _ring_plan(kernel: str, M: int, N: int, a_itemsize: int, flops: int,
+               nbytes: int) -> LaunchPlan:
+    """A staged f32 launch on the tile :func:`f32_tile` picks: grid (column
+    tiles, row tiles)."""
+    tile = f32_tile(M, N)
+    bm, bn, threads, _ = F32_TILES[tile]
+    return LaunchPlan(kernel, (cdiv(N, bn), cdiv(M, bm)), (threads,),
+                      ring_smem(tile, a_itemsize), flops, nbytes)
 
 
 def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
@@ -158,8 +243,7 @@ def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
     if p_dtype != F32:
         raise TypeError(f"no TN kernel takes {dtype} X with {p_dtype} Y")
     kernel = "gemm_tn_f32" if dtype == F32 else "gemm_tn_bf16_f32"
-    return LaunchPlan(kernel, (cdiv(M, TILE), cdiv(N, TILE)), (THREADS,), SMEM_BYTES, flops,
-                      nbytes)
+    return _ring_plan(kernel, M, N, itemsize(dtype), flops, nbytes)
 
 
 def omega_fill(rows: int, cols: int, dtype=F32) -> LaunchPlan:

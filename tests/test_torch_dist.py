@@ -490,7 +490,8 @@ def test_accumulations_match_reference(n, d, kt):
 
 def test_matmul_nn_plan():
     (p,) = plan.plan_matmul_nn(4096, 2 ** 18, 2060)
-    assert p.kernel == "gemm_nn_f32" and p.grid == (32, 17)
+    # the 128 × 64 tile: 33 column tiles by 32 row tiles, four full waves
+    assert p.kernel == "gemm_nn_f32" and p.grid == (33, 32) and p.block == (128,)
     assert p.flops == 2 * 4096 * 2 ** 18 * 2060
     assert p.bytes == 4 * (4096 * 2 ** 18 + 2 ** 18 * 2060 + 4096 * 2060)
     assert plan.plan_matmul_nn(300, 9001, 67) == plan.plan_proj_stage(300, 9001, 67)

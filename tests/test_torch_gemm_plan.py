@@ -1,0 +1,122 @@
+"""The staged f32 products' launch plan: the tile rule, the copy widths and
+the tile set's agreement with ``csrc/gemm_ring.cuh``.
+
+The kernels run only on the card (``chip_smoke.py``); what decides how they
+are launched is Python, and is tested here on the CPU.
+"""
+
+import re
+
+import pytest
+import torch
+
+from repro_torch.kernels import build, matmul, plan
+
+CSRC = build.CSRC
+
+# (M, N) of the main path's staged f32 outputs, and the share of idle slots
+# the rule promises there (plan.f32_tile's docstring): proj_stage and the
+# seeded stage's slabs (8192 × 2060), matmul_nn (4096 × 2060), the power
+# sweep (2^19 × 2060), the p = 910 stage (8192 × 970); gram_sweep and
+# matmul_tn (2060 × 2060)
+MAIN_OUTPUTS = [((8192, 2060), 0.10), ((4096, 2060), 0.10), ((2 ** 19, 2060), 0.10),
+                ((8192, 970), 0.10), ((2060, 2060), 0.35)]
+
+
+def _cost(M, N, tile):
+    bm, bn, _, per_sm = plan.F32_TILES[tile]
+    return plan.tile_waves(M, N, tile)[1] * per_sm * bm * bn
+
+
+@pytest.mark.parametrize("shape,promised", MAIN_OUTPUTS)
+def test_tile_rule_leaves_at_most_the_promised_idle_share(shape, promised):
+    M, N = shape
+    tile = plan.f32_tile(M, N)
+    assert plan.idle_share(M, N, tile) <= promised
+    # the cheapest modelled launch of the set, and no worse than the one
+    # 128 × 128 tile at two blocks per SM that every launch used before
+    assert all(_cost(M, N, tile) <= _cost(M, N, other) for other in range(len(plan.F32_TILES)))
+    old_tiles = plan.cdiv(M, 128) * plan.cdiv(N, 128)
+    old_idle = 1 - M * N / (plan.cdiv(old_tiles, 2 * plan.SMS) * 2 * plan.SMS * 128 * 128)
+    assert plan.idle_share(M, N, tile) <= old_idle
+
+
+def test_tile_rule_waves_at_europarl_width():
+    """At k̃ = 2060 the 128 × 64 tile fills 8192 rows in exactly 8 waves of
+    264 blocks; the 2060 × 2060 products take the 128 × 128 tile; at
+    k̃ = 970 the two tie and the larger wins."""
+    assert plan.F32_TILES[plan.f32_tile(8192, 2060)][:2] == (128, 64)
+    assert plan.tile_waves(8192, 2060, plan.f32_tile(8192, 2060)) == (2112, 8)
+    assert plan.tile_waves(4096, 2060, plan.f32_tile(4096, 2060)) == (1056, 4)
+    assert plan.F32_TILES[plan.f32_tile(2060, 2060)][:2] == (128, 128)
+    assert _cost(8192, 970, 0) == _cost(8192, 970, 1)
+    assert plan.F32_TILES[plan.f32_tile(8192, 970)][:2] == (128, 128)
+
+
+def test_tile_set_matches_the_kernel_source():
+    """``plan.F32_TILES`` lists ``gemm_ring.cuh``'s compiled tiles in order,
+    with 8 × 8 outputs per thread, and the ring's depth is the plan's."""
+    src = (CSRC / "gemm_ring.cuh").read_text()
+    tiles = [tuple(map(int, m)) for m in
+             re.findall(r"using Tile(?:\d) = Tile<(\d+), (\d+), (\d+)>;", src)]
+    assert tiles == [(bm, bn, per_sm) for bm, bn, _, per_sm in plan.F32_TILES]
+    # 8 × 8 outputs per thread, eight warps per SM on every tile
+    assert all(threads == bm * bn // 64 and threads * per_sm == 256
+               for bm, bn, threads, per_sm in plan.F32_TILES)
+    assert f"constexpr int BK = {plan.RING_BK};" in src
+    assert f"constexpr int STAGES = {plan.RING_STAGES};" in src
+    assert re.search(r"case (\d+):", src.split("int launch(int tile")[1]) is not None
+
+
+def test_every_compiled_bk_divides_the_seeded_slab():
+    """A seeded slab edge falls on a staging step of every tile that
+    contracts a slab: the ring's, the fused f32 tile's and the bf16 tiles'."""
+    bks = {f.name: int(m) for f in sorted(CSRC.glob("*.cuh"))
+           for m in re.findall(r"constexpr int BK = (\d+);", f.read_text())}
+    assert set(bks) == {"gemm.cuh", "gemm_bf16.cuh", "gemm_ring.cuh"}
+    assert all(plan.SEEDED_SLAB % bk == 0 for bk in bks.values())
+    assert bks["gemm_ring.cuh"] == plan.RING_BK and plan.RING_BK % bks["gemm.cuh"] == 0
+
+
+@pytest.mark.parametrize("row_stride,itemsize,want", [
+    (67, 4, False),       # k̃ = 67: a 268-byte row
+    (9001, 4, False),     # the ragged contraction of the NN stage, and M of the TN sweep
+    (970, 4, False),      # k̃ = 970: 3,880 bytes, 8-byte aligned only
+    (2060, 4, True),      # k̃ = 2060
+    (2 ** 19, 4, True),   # a Europarl row of X
+    (301, 2, False),      # a bf16 A of odd width
+    (2 ** 19, 2, True),
+])
+def test_alignment_predicate(row_stride, itemsize, want):
+    assert plan.vector_copies(4096, row_stride, itemsize) is want
+    assert plan.vector_copies(4096 + itemsize, row_stride, itemsize) is False  # one element in
+
+
+def test_launcher_sends_ragged_operands_to_the_4_byte_path():
+    """The launcher's two extra arguments: the tile for the output and the
+    copy widths (bit 0 A, bit 1 B) for these tensors' addresses and rows."""
+    x, q = torch.empty(333, 9001), torch.empty(9001, 67)
+    assert matmul._ring("gemm_nn_f32", 333, 67, matmul._operand(x, 9001),
+                        matmul._operand(q, 67)) == (plan.f32_tile(333, 67), 0)
+    a, p = torch.empty(8192, 2048), torch.empty(8192, 2060)
+    assert matmul._ring("gemm_tn_f32", 2048, 2060, matmul._operand(a, 2048),
+                        matmul._operand(p, 2060)) == (plan.f32_tile(2048, 2060), 3)
+    # a window one element in: A no longer 16-byte aligned, B still
+    assert plan.copies((a.data_ptr() + 4, 2048, 4), (p.data_ptr(), 2060, 4)) == 2
+    assert matmul._ring("gemm_nn_bf16", 8192, 2060, (0, 8, 2), (0, 8, 2)) == ()
+
+
+def test_staged_plans_take_the_picked_tile():
+    (stage,) = plan.plan_proj_stage(8192, 2 ** 19, 2060)
+    assert stage.grid == (33, 64) and stage.block == (128,)
+    assert stage.smem_bytes == plan.ring_smem(1)
+    (gram,) = plan.plan_gram_sweep(8192, 2060)
+    assert gram.grid == (17, 17) and gram.block == (256,)
+    (mixed,) = plan.plan_powerpass_sweep(8192, 2 ** 19, 2060, dtype=torch.bfloat16,
+                                         p_dtype=torch.float32)
+    assert mixed.kernel == "gemm_tn_bf16_f32" and mixed.grid == (33, 4096)
+    # the pin: no more blocks fit an H100 SM than the plan counts
+    for tile, (_, _, _, per_sm) in enumerate(plan.F32_TILES):
+        for w in (4, 2):
+            need = plan.ring_smem(tile, w) + plan.SMEM_RESERVED
+            assert per_sm * need <= plan.SMEM_PER_SM < (per_sm + 1) * need

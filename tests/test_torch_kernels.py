@@ -158,13 +158,27 @@ def test_wrappers_reject_unsupported_devices():
         tk.proj_stage(x, torch.empty(3, 2, device="meta"))
 
 
-def test_build_targets_are_keyed_by_source_and_flags():
+def test_build_targets_are_keyed_by_source_and_flags(tmp_path, monkeypatch):
     assert set(build.LIBRARIES) == {"gemm_f32", "gemm_bf16", "recompute_f32"}
     for name in build.LIBRARIES:
         target = build._target(name)
         assert target.parent == build.BUILD_DIR
         assert target.name.startswith(f"{name}-") and target.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # every header under csrc/ is in every digest, so an edited one rebuilds
+    assert sorted(build.HEADERS) == sorted(build.CSRC.glob("*.cuh"))
+    copies = {}
+    for f in build.CSRC.iterdir():
+        copies[f] = tmp_path / f.name
+        copies[f].write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "LIBRARIES", {k: copies[v] for k, v in build.LIBRARIES.items()})
+    monkeypatch.setattr(build, "HEADERS", tuple(copies[h] for h in build.HEADERS))
+    before = {name: build._target(name) for name in build.LIBRARIES}
+    for header in build.HEADERS:
+        header.write_bytes(header.read_bytes() + b"\n")
+        after = {name: build._target(name) for name in build.LIBRARIES}
+        assert all(after[name] != before[name] for name in build.LIBRARIES), header.name
+        before = after
 
 
 # --------------------------------------------------------------------------
