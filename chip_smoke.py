@@ -10,11 +10,16 @@ Phases, each of which fails the run by raising:
    TF32 off for every f32 product;
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (three ``nvcc`` started together), prints ptxas's registers and spills
-   for every instance of the staged f32 kernel (``gemm_ring.cuh``), and
-   counts the HMMA instructions of each kernel in ``cuobjdump -sass``: the
-   bf16 tensor-core kernels must issue them, the f32 ones none; then the
-   occupancy API's blocks per SM of each f32 tile must be the plan's
-   (``plan.F32_TILES``), so the printed waves are the card's;
+   for every instance of the staged f32 kernel (``gemm_ring.cuh``), of the
+   bf16 wgmma tile (``gemm_bf16.cuh``) and of the fused bf16 kernels, and
+   fails if ptxas reports that it serialized their wgmma products; counts
+   the HGMMA and HMMA instructions of each kernel in ``cuobjdump -sass``:
+   every kernel on the wgmma tile, staged or fused, must issue HGMMA, the
+   old mma.sync tile kept as a witness HMMA only, the f32 kernels and the
+   generator neither; then the occupancy API's blocks per SM of each f32
+   tile must be the plan's (``plan.F32_TILES``), so the printed waves are
+   the card's, and of the wgmma tile and the fused bf16 kernels at their
+   dynamic shared memory ``plan.BF16_BLOCKS_PER_SM``;
 3. kernels — each of the four GEMM entry points against its plain
    PyTorch version on the card, at the main path's shapes (8192 rows,
    d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
@@ -91,7 +96,11 @@ Phases, each of which fails the run by raising:
     and ``out=`` ≡ acc + ΔY; times beside the plain version, a bf16
     ``torch.matmul`` (yardstick only; for the mixed sweep an f32 one on A
     upcast beforehand) and the bound (tensor-core FLOPs at 989 TFLOP/s,
-    f32 ones at 67);
+    f32 ones at 67); then the old mma.sync tile (``gemm_bf16_mma.cuh``,
+    which no entry point launches) against the wgmma tile on the same
+    operands at ``proj_stage[bf16]``'s main-path shape, the bf16 sweeps'
+    and ``gram_sweep[bf16]``'s: "bitwise equal" or the count of differing
+    elements and the largest ulp distance, and both tiles' times;
 11. dist bf16 — ``cca_fit --mode dist --compute-dtype bfloat16``: at
     Europarl width on 1 × 1 × 2 (``unfused`` ≡ ``fused`` bitwise per rank,
     the bf16 launches per rank and pass, |Δρ| ≤ 1e-3 against the torch
@@ -126,9 +135,9 @@ Phases, each of which fails the run by raising:
     the f32 fit's.
 
 Every fit resets the launch counters just before it and reads them just
-after, and every kernels-engine f32 stream fit prints the first 16 hex
-digits of the sha256 of ρ's and of Xa's raw bytes; the total wall time is
-printed at the end.
+after, and every kernels-engine stream fit, f32 or bf16, prints the first
+16 hex digits of the sha256 of ρ's and of Xa's raw bytes; the total wall
+time is printed at the end.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON, and before that the card's name and power limit.
@@ -768,6 +777,55 @@ def bf16_out_contract(a, p, label) -> None:
         raise AssertionError(f"{label}(out=) is not acc + ΔY bitwise")
 
 
+def mma_witness(x, q, tn: bool):
+    """The old mma.sync tile (``csrc/gemm_bf16_mma.cuh``), which no entry
+    point launches: Y = x·q, or xᵀ·q when ``tn``, f32, by its own C entry;
+    uncounted."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    K, M = x.shape if tn else x.shape[::-1]
+    N = q.shape[1]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = build.build()["gemm_bf16"].gemm_bf16_mma_witness(
+        x.data_ptr(), q.data_ptr(), y.data_ptr(), M, N, K, int(tn),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm_bf16_mma_witness failed with CUDA error {rc}")
+    return y
+
+
+def bf16_tile_witness(x, q, xm, pm) -> dict:
+    """The wgmma tile against the old mma.sync tile on the same operands, at
+    ``proj_stage[bf16]``'s main-path shape (x·q, tile 1), at the bf16
+    sweeps' (xmᵀ·pm, tile 2) and at ``gram_sweep[bf16]``'s (pmᵀ·pm): per
+    shape "bitwise equal" or the count of differing elements and the largest
+    distance in f32 ulps, and both tiles' times.  The two agree only if a
+    wgmma k16 product from zero has an mma.sync m16n8k16's bits; no contract
+    rests on that.  Returns the old tile's ms per shape."""
+    import torch
+
+    from repro_torch.kernels import gram_sweep, matmul_tn, proj_stage
+
+    old_ms = {}
+    for label, new, old, reps in [
+            ("proj_stage[bf16]", lambda: proj_stage(x, q), lambda: mma_witness(x, q, False), 3),
+            ("matmul_tn[bf16]", lambda: matmul_tn(xm, pm), lambda: mma_witness(xm, pm, True), 3),
+            ("gram_sweep[bf16]", lambda: gram_sweep(pm), lambda: mma_witness(pm, pm, True), 10)]:
+        a, b = new(), old()
+        torch.cuda.synchronize()
+        differ = int((a != b).sum())
+        verdict = ("bitwise equal" if differ == 0 else
+                   f"{differ} of {a.numel()} elements differ, by at most {ulp(a, b)} f32 ulp")
+        del a, b
+        t_new, t_old = time_ms(new, reps), time_ms(old, reps)
+        old_ms[label] = t_old
+        print(f"[smoke] old-tile witness, {label} shape: wgmma tile vs mma.sync tile "
+              f"{verdict}; wgmma {t_new:.3f} ms, mma.sync {t_old:.3f} ms", flush=True)
+    return old_ms
+
+
 def phase_bf16_kernels(dev, a16, b16) -> dict:
     """The bf16-operand forms (``csrc/gemm_bf16.cu``; the fused ones in
     ``csrc/recompute_f32.cu``) at three ragged shapes, then at the sharded
@@ -835,6 +893,7 @@ def phase_bf16_kernels(dev, a16, b16) -> dict:
               f"{t['plain_ms']:.3f} ms, library {lib_txt}, bound {rows[name]['bound_ms']:.3f} "
               f"ms ({rows[name]['bound_by']}); {(tc_flops + flops) / t['ms'] / 1e9:.1f} TFLOP/s",
               flush=True)
+    bf16_tile_witness(b16, q, xm, pm)
     return rows
 
 
@@ -858,7 +917,7 @@ def run_fit(argv, label):
     print(f"[smoke] {label}: wall {wall:.3f} s, passes {rep.pass_seconds} s, "
           f"schedules {rep.pass_schedules}, peak memory {peak:.2f} GB, launches {launches}, "
           f"sum rho {SUM_RHO[label]:.6f}", flush=True)
-    if "torch" not in argv and "bfloat16" not in argv:  # a kernels-engine f32 fit
+    if "torch" not in argv:  # a kernels-engine fit, f32 or bf16
         print(f"[smoke] {label}: sha256 rho {digest(rep.result.rho)}, Xa "
               f"{digest(rep.result.Xa)}", flush=True)
     return rep, launches, peak, wall
@@ -1593,40 +1652,66 @@ def phase_stream_bf16(dev) -> dict:
 
 def ring_spills() -> None:
     """ptxas's registers and spills for each instance of the staged f32
-    kernel (``gemm_ring.cuh`` ``ring_kernel``), from the build's ``-Xptxas
-    -v`` output: NN or TN, its mode, its A type and its tile."""
+    kernel (``gemm_ring.cuh`` ``ring_kernel``: NN or TN, its mode, its A
+    type and its tile) and of the bf16 wgmma tile (``gemm_bf16.cuh``
+    ``wgmma_kernel``: NN or TN and its mode; the fused bf16 kernels
+    ``recompute_bf16_kernel``: phase 1's mode, phase 2's, A's type), from
+    the build's ``-Xptxas -v`` output; any warning of ptxas that names
+    wgmma (it serializes the products when it cannot keep them in flight)
+    fails the run."""
     import re
 
     from repro_torch.kernels import build
 
     modes = {"0": "overwrite", "1": "accumulate", "2": "continue"}
+
+    def name_of(fn):
+        k = re.search(r"ring_kernelILb(\d)ELi(\d)E(\w)NS_4TileILi(\d+)ELi(\d+)ELi(\d)E", fn)
+        if k:
+            return (f"{'TN' if k.group(1) == '1' else 'NN'} {modes[k.group(2)]} "
+                    f"{'bf16' if k.group(3) == 't' else 'f32'} A, {k.group(4)}×{k.group(5)}")
+        k = re.search(r"wgmma_kernelILb(\d)ELi(\d)E", fn)
+        if k:
+            return f"wgmma tile {'TN' if k.group(1) == '1' else 'NN'} {modes[k.group(2)]}"
+        k = re.search(r"recompute_bf16_kernelILi(\d)ELi(\d)E(\w)", fn)
+        if k:
+            return (f"fused bf16 phase 1 {modes[k.group(1)]}, phase 2 {modes[k.group(2)]}, "
+                    f"{'bf16' if k.group(3) == 't' else 'f32'} A2")
+        return None
+
+    serialized = []
     for lib, entry in build.BUILD_LOG.items():
         fn, rows = None, []
         for line in entry["log"].splitlines():
+            if "wgmma" in line and "arning" in line:
+                serialized.append(line.strip())
             m = re.search(r"Function properties for (\S+)", line) or re.search(
                 r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1)
                 continue
-            if fn is None or "ring_kernel" not in fn:
+            name = name_of(fn) if fn is not None else None
+            if name is None:
                 continue
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
             if not (spill or regs):
                 continue
-            k = re.search(r"ring_kernelILb(\d)ELi(\d)E(\w)NS_4TileILi(\d+)ELi(\d+)ELi(\d)E", fn)
-            name = (f"{'TN' if k.group(1) == '1' else 'NN'} {modes[k.group(2)]} "
-                    f"{'bf16' if k.group(3) == 't' else 'f32'} A, {k.group(4)}×{k.group(5)}"
-                    if k else fn)
             rows.append(f"{name}: " + (f"{spill.group(1)} B spill stores, {spill.group(2)} B "
                                        f"spill loads" if spill else f"{regs.group(1)} registers"))
         for row in rows:
             print(f"[smoke] ptxas {lib}: {row}", flush=True)
+    for line in serialized:
+        print(f"[smoke] ptxas: {line}", flush=True)
+    if serialized:
+        raise AssertionError("ptxas serialized the wgmma products of a bf16 kernel")
 
 
 def tile_occupancy() -> None:
     """Each f32 tile's blocks per SM on this card (the occupancy API) must be
-    the plan's, or the waves the rule models are not the card's."""
+    the plan's, or the waves the rule models are not the card's; so must
+    the bf16 wgmma tile's, staged and fused, at its dynamic shared memory
+    (the fused kernels' cooperative grid is sized from it)."""
     from repro_torch.kernels import build, plan
 
     for tile, (bm, bn, threads, per_sm) in enumerate(plan.F32_TILES):
@@ -1636,6 +1721,13 @@ def tile_occupancy() -> None:
               flush=True)
         if got != [per_sm, per_sm]:
             raise AssertionError(f"f32 tile {tile}: {got} blocks per SM, the plan has {per_sm}")
+    got = build.bf16_blocks_per_sm()
+    print(f"[smoke] bf16 wgmma tile (128×128, {plan.BF16_THREADS} threads, "
+          f"{plan.SMEM_BYTES_BF16} B of dynamic shared memory): blocks per SM {got}, plan "
+          f"{plan.BF16_BLOCKS_PER_SM}", flush=True)
+    if set(got.values()) != {plan.BF16_BLOCKS_PER_SM}:
+        raise AssertionError(f"bf16 tile: {got} blocks per SM, the plan has "
+                             f"{plan.BF16_BLOCKS_PER_SM}")
 
 
 def tile_line(name: str, M: int, N: int) -> str:
@@ -1651,9 +1743,12 @@ def tile_line(name: str, M: int, N: int) -> str:
 
 
 def sass_hmma() -> None:
-    """HMMA instructions per kernel of the three libraries, from
-    ``cuobjdump -sass``: the tensor-core tiles must issue them, the f32
-    kernels (CUDA cores, no TF32) and the generator none."""
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel of the
+    three libraries, from ``cuobjdump -sass``: every kernel on the bf16
+    wgmma tile, staged (``wgmma_kernel``) or fused
+    (``recompute_bf16_kernel``), must issue HGMMA; the old tile kept as a
+    witness (``gemm_bf16_mma``) HMMA and no HGMMA; the f32 kernels (CUDA
+    cores, no TF32) and the generator neither."""
     import re
 
     from repro_torch.kernels import build
@@ -1670,16 +1765,25 @@ def sass_hmma() -> None:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                counts[fn] += 1
-                ops.update(re.findall(r"HMMA\.\S+", line))
-        print(f"[smoke] SASS HMMA per kernel, {lib}: {counts}; opcodes {sorted(ops)}",
-              flush=True)
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        counts[fn][op] += 1
+                        ops.update(re.findall(rf"\b{op}\.\S+", line))
+        print(f"[smoke] SASS HGMMA / HMMA per kernel, {lib}: "
+              f"{ {fn: (c['HGMMA'], c['HMMA']) for fn, c in counts.items()} }; "
+              f"opcodes {sorted(ops)}", flush=True)
         for fn, c in counts.items():
-            tensor_core = "mma_kernel" in fn or "recompute_bf16_kernel" in fn
-            if tensor_core != (c > 0):
-                raise AssertionError(f"{fn}: {c} HMMA instructions")
+            if "wgmma_kernel" in fn or "recompute_bf16_kernel" in fn:
+                ok = c["HGMMA"] > 0
+            elif "gemm_bf16_mma" in fn:
+                ok = c["HMMA"] > 0 and c["HGMMA"] == 0
+            else:
+                ok = c["HGMMA"] == 0 and c["HMMA"] == 0
+            if not ok:
+                raise AssertionError(f"{fn}: {c['HGMMA']} HGMMA and {c['HMMA']} HMMA "
+                                     "instructions")
 
 
 def main() -> int:

@@ -12,7 +12,9 @@ interface, loaded with ``ctypes``:
 
 on the headers ``gemm_ring.cuh`` (the staged f32 products' pipelined
 kernel), ``gemm.cuh`` (the fused kernels' f32 tile), ``gemm_bf16.cuh``
-(the bf16 tiles) and ``rand.cuh`` (the Ω generator):
+(the bf16 tensor-core tile, on ``wgmma``), ``gemm_bf16_mma.cuh`` (the
+old ``mma.sync`` tile, kept as a witness no entry point launches) and
+``rand.cuh`` (the Ω generator):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -45,8 +47,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "gemm_bf16": CSRC / "gemm_bf16.cu",
              "recompute_f32": CSRC / "recompute_f32.cu"}
 #: The headers every source may include; each goes into every digest.
-HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "gemm_ring.cuh",
-           CSRC / "rand.cuh")
+HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "gemm_bf16_mma.cuh",
+           CSRC / "gemm_ring.cuh", CSRC / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,33 +70,45 @@ SIGNATURES = {
         "gemm_f32_blocks_per_sm": [_int, _int, _ptr],
     },
     "gemm_bf16": {
-        "gemm_nn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr],
-        "gemm_tn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        # x, q, p, M, N, K, copy widths of x and q in bytes (plan.copy_bytes), stream
+        "gemm_nn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _ptr],
+        # x, y, o, M, N, K, accumulate, copy widths of x and y, stream
+        "gemm_tn_bf16": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _int, _ptr],
         # as gemm_tn_f32, with a bf16 x
         "gemm_tn_bf16_f32": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _int, _int, _ptr],
-        # as proj_stage_seeded_f32 and omega_fill_f32, bf16 x, slab and out
+        # x, seed words, p, slab scratch, slab rows, M, N, K, copy widths of x
+        # and the slab, stream
         "proj_stage_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _i64, _i64, _i64,
-                                   _ptr],
+                                   _int, _int, _ptr],
+        # as omega_fill_f32, bf16 out
         "omega_fill_bf16": [_ptr, _i64, _i64, _u32, _i64, _i64, _u32, _u32, _ptr],
+        # the old mma.sync tile: x, q, y, M, N, K, tn, stream
+        "gemm_bf16_mma_witness": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _int, _ptr],
+        # tn, int* out
+        "gemm_bf16_blocks_per_sm": [_int, _ptr],
     },
     "recompute_f32": {
         # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, stream
         "recompute_f32": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
                           _ptr],
-        # the same arguments, on bf16 x and q (and a2 of the power form)
+        # the same arguments, on bf16 x and q (and a2 of the power form), with
+        # the copy widths of x and q before the stream
         "projgram_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
-                          _ptr],
+                          _int, _int, _ptr],
         "power_recompute_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
-                                 _int, _ptr],
+                                 _int, _int, _int, _ptr],
         # x, seed words, p, slab scratch, slab rows, a2, y, n, kt, d, m2, lda2,
         # accumulate, tile and vec of the slabs before the last, stream
         "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
                                  _i64, _i64, _i64, _int, _int, _int, _ptr],
-        # the same arguments, on bf16 x and slab (and a2 of the power form)
+        # the same arguments, on bf16 x and slab (and a2 of the power form),
+        # with the copy widths of x and the slab instead of tile and vec
         "projgram_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
-                                 _i64, _i64, _i64, _int, _ptr],
+                                 _i64, _i64, _i64, _int, _int, _int, _ptr],
         "power_recompute_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64,
-                                        _i64, _i64, _i64, _i64, _int, _ptr],
+                                        _i64, _i64, _i64, _i64, _int, _int, _int, _ptr],
+        # power, int* out
+        "recompute_bf16_blocks_per_sm": [_int, _ptr],
     },
 }
 #: Each library's ``cudaGetErrorString``.
@@ -181,6 +195,25 @@ def blocks_per_sm(tn: bool, tile: int) -> int:
     if rc != 0:
         raise RuntimeError(f"occupancy query failed with CUDA error {rc}")
     return out.value
+
+
+def _occupancy(fn: str, arg: int) -> int:
+    out = ctypes.c_int(0)
+    rc = getattr(build()[_LIB_OF[fn]], fn)(arg, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query {fn} failed with CUDA error {rc}")
+    return out.value
+
+
+def bf16_blocks_per_sm() -> dict[str, int]:
+    """The blocks of each kernel on the bf16 tensor-core tile that the card
+    keeps resident on one SM at the tile's dynamic shared memory, by the
+    occupancy API: the staged NN and TN products and the fused projgram
+    and power kernels (the cooperative grid's blocks per SM)."""
+    return {"NN": _occupancy("gemm_bf16_blocks_per_sm", 0),
+            "TN": _occupancy("gemm_bf16_blocks_per_sm", 1),
+            "fused projgram": _occupancy("recompute_bf16_blocks_per_sm", 0),
+            "fused power": _occupancy("recompute_bf16_blocks_per_sm", 1)}
 
 
 def launch(entry: str, fn: str, *args) -> None:

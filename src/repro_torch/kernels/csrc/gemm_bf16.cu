@@ -1,7 +1,7 @@
 // The bf16-operand forms of the staged products on Hopper (sm_90a): bf16 X
 // and Q (or A and P), exact products summed in f32, f32 output.  Five C
-// entries over the tiles of gemm_bf16.cuh and the generator of rand.cuh,
-// launched by eight Python forms:
+// entries over the tiles of gemm_bf16.cuh (tiles 1 and 2: the wgmma tile)
+// and the generator of rand.cuh, launched by eight Python forms:
 //
 //   gemm_nn_bf16      tile 1  ← proj_stage[bf16]   replaces src/repro/kernels/powerpass.py
 //                                                    _proj_stage_kernel  (P = X·Q)
@@ -39,6 +39,12 @@
 // f32, as the reference keeps it).  The fused recompute kernels' bf16 forms
 // are in recompute_f32.cu, on tiles 1 and 3.
 //
+// Every launch of tiles 1 and 2 takes the copy widths of its two bf16
+// operands in bytes (`wa`, `wb`: 16, 8, 4 or 2, plan.copy_bytes) and is
+// refused (cudaErrorMisalignedAddress) where the operand does not allow them.
+// Two more entries serve chip_smoke.py only: the old mma.sync tile as a
+// witness (gemm_bf16_mma.cuh), and the blocks per SM of the tile's kernels.
+//
 // C interface (loaded with ctypes): pointers and the stream as void*, sizes
 // as long long; each entry returns cudaGetLastError() after its launch.
 
@@ -46,10 +52,10 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "gemm_bf16_mma.cuh"
 #include "gemm_ring.cuh"
 #include "rand.cuh"
 
-using gemm_bf16::launch_mma;
 using gemm_f32::ACCUMULATE;
 using gemm_f32::bf16_bits;
 using gemm_f32::CONTINUE;
@@ -59,17 +65,18 @@ extern "C" {
 
 // P (M×N, f32) = X (M×K, bf16) · Q (K×N, bf16).
 int gemm_nn_bf16(const void* x, const void* q, void* p, long long M, long long N,
-                 long long K, void* stream) {
-  return launch_mma<false, OVERWRITE>(x, q, p, M, N, K, K, (cudaStream_t)stream);
+                 long long K, int wa, int wb, void* stream) {
+  return gemm_bf16::launch<false, OVERWRITE>(x, q, p, M, N, K, K, wa, wb,
+                                             (cudaStream_t)stream);
 }
 
 // O (M×N, f32) (+)= Xᵀ · Y with X (K×M) and Y (K×N) both bf16; accumulate
 // != 0 adds the full contraction into O's current values in the epilogue.
 int gemm_tn_bf16(const void* x, const void* y, void* o, long long M, long long N,
-                 long long K, int accumulate, void* stream) {
+                 long long K, int accumulate, int wa, int wb, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  return accumulate ? launch_mma<true, ACCUMULATE>(x, y, o, M, N, K, M, st)
-                    : launch_mma<true, OVERWRITE>(x, y, o, M, N, K, M, st);
+  return accumulate ? gemm_bf16::launch<true, ACCUMULATE>(x, y, o, M, N, K, M, wa, wb, st)
+                    : gemm_bf16::launch<true, OVERWRITE>(x, y, o, M, N, K, M, wa, wb, st);
 }
 
 // O (M×N, f32) (+)= Xᵀ · Y with X (K×M) bf16 and Y (K×N) f32: the f32 TN
@@ -86,10 +93,11 @@ int gemm_tn_bf16_f32(const void* x, const void* y, void* o, long long M, long lo
 // P (M×N, f32) = X (M×K, bf16) · bf16(Ω(seed)) with Ω (K×N) made slab by
 // slab into `slab` (≥ min(K, slab_rows) × N bf16): omega_fill (bf16), then
 // tile 1 over X's column window, continuing P's chains.  slab_rows must be a
-// positive multiple of gemm_bf16::BK, so that slab edges fall on BK steps.
+// positive multiple of gemm_bf16::BK, so that slab edges fall on stage edges
+// (and X's windows keep X's copy width).
 int proj_stage_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
                            long long slab_rows, long long M, long long N, long long K,
-                           void* stream) {
+                           int wa, int wb, void* stream) {
   if (slab_rows <= 0 || slab_rows % gemm_bf16::BK != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   for (long long k0 = 0; k0 < K; k0 += slab_rows) {
@@ -98,8 +106,9 @@ int proj_stage_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, voi
                                                         (uint32_t)k0, K, N, s0, s1, st);
     if (err != cudaSuccess) return (int)err;
     const bf16_bits* window = (const bf16_bits*)x + k0;  // X[:, k0 : k0 + ks], stride K
-    const int rc = k0 == 0 ? launch_mma<false, OVERWRITE>(window, slab, p, M, N, ks, K, st)
-                           : launch_mma<false, CONTINUE>(window, slab, p, M, N, ks, K, st);
+    const int rc = k0 == 0
+        ? gemm_bf16::launch<false, OVERWRITE>(window, slab, p, M, N, ks, K, wa, wb, st)
+        : gemm_bf16::launch<false, CONTINUE>(window, slab, p, M, N, ks, K, wa, wb, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -111,6 +120,29 @@ int omega_fill_bf16(void* out, long long rows, long long cols, unsigned r0, long
                     long long kt, unsigned s0, unsigned s1, void* stream) {
   return (int)rand_f32::launch_omega_fill((bf16_bits*)out, rows, cols, r0, d, kt, s0, s1,
                                           (cudaStream_t)stream);
+}
+
+// The old mma.sync tile (gemm_bf16_mma.cuh), which no entry point launches:
+// Y (M×N, f32) = X·Q (tn = 0, X M×K) or Xᵀ·Q (tn != 0, X K×M), Q (K×N),
+// all row-major with packed rows.
+int gemm_bf16_mma_witness(const void* x, const void* q, void* y, long long M, long long N,
+                          long long K, int tn, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return tn ? gemm_bf16_mma::launch_mma<true, OVERWRITE>(x, q, y, M, N, K, M, st)
+            : gemm_bf16_mma::launch_mma<false, OVERWRITE>(x, q, y, M, N, K, K, st);
+}
+
+// The blocks of the wgmma tile's NN (tn = 0) or TN kernel that one SM keeps
+// resident at the tile's dynamic shared memory, by the occupancy API.
+int gemm_bf16_blocks_per_sm(int tn, int* out) {
+  const void* kern = tn ? (const void*)gemm_bf16::wgmma_kernel<true, OVERWRITE>
+                        : (const void*)gemm_bf16::wgmma_kernel<false, OVERWRITE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         gemm_bf16::SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, gemm_bf16::THREADS,
+                                                        gemm_bf16::SMEM_BYTES);
+  return (int)err;
 }
 
 const char* gemm_bf16_error_string(int code) {

@@ -22,11 +22,16 @@
 //
 // The bf16 forms take bf16 X and Q (and A), keep P and the accumulators in
 // f32, and run phase 1 on the tensor cores (tile 1 of gemm_bf16.cuh, the
-// staged proj_stage[bf16]'s) and phase 2 on the f32 tile (A widened for the
-// power form, as powerpass_sweep[bf16,f32]); each is bitwise its staged pair.
-// Their seeded forms make Ω in bf16 slabs as the f32 ones do in f32 (below),
-// the slabs before the last contracted by tile 1, the last by the fused
-// launch, whose phase 1 continues P's chains (gemm_bf16.cuh CONTINUE).
+// wgmma tile of the staged proj_stage[bf16]) and phase 2 on the f32 tile (A
+// widened for the power form, as powerpass_sweep[bf16,f32]); each is bitwise
+// its staged pair.  Their seeded forms make Ω in bf16 slabs as the f32 ones
+// do in f32 (below), the slabs before the last contracted by tile 1, the
+// last by the fused launch, whose phase 1 continues P's chains
+// (gemm_bf16.cuh CONTINUE).  The wgmma tile sets their block: 256 threads
+// (two warpgroups; gemm.cuh's tile has as many), one block per SM, and the
+// tile's ring in dynamic shared memory (gemm_bf16::SMEM_BYTES, 197,632
+// bytes), which phase 2 reuses for its own staging; the cooperative launch
+// sizes its grid from the occupancy API at that shared memory.
 //
 // What the TPU kernels keep out of device memory: P.  They hold a
 // (256 × k̃p) P tile in VMEM scratch over the contraction and fold it into
@@ -76,7 +81,8 @@
 // What bounds it: arithmetic, as gemm.cuh says of the tile; phase 2 adds
 // 2·n·m2·k̃ FLOPs to phase 1's 2·n·d·k̃ (≈ 0.2 % at k̃ = 970, d = 2^19), but
 // runs only ⌈m2/128⌉·⌈k̃/128⌉ tiles (64 at k̃ = 970) on a grid of ~264
-// blocks, so it costs about one tile's contraction over the chunk.
+// blocks (132 for the bf16 forms, one per SM), so it costs about one
+// tile's contraction over the chunk.
 //
 // C interface (loaded with ctypes): pointers and the stream as void*,
 // sizes as long long; each entry returns the first CUDA error of its
@@ -118,20 +124,24 @@ recompute_f32_kernel(const float* __restrict__ X, const float* __restrict__ Q, f
                                  (t / tiles_m2) * BN, sm);
 }
 
-// A cooperative launch of `kern` over at most as many blocks as can be
-// resident at once, and no more than `tiles`.
-int launch_cooperative(const void* kern, int64_t tiles, void** args, cudaStream_t stream) {
+// A cooperative launch of `kern` with `smem` bytes of dynamic shared memory
+// over at most as many blocks as can be resident at once, and no more than
+// `tiles`.
+int launch_cooperative(const void* kern, int64_t tiles, void** args, int smem,
+                       cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int64_t resident = (int64_t)per_sm * sms;
   const dim3 grid((unsigned)(tiles < resident ? tiles : resident));
-  err = cudaLaunchCooperativeKernel(kern, grid, dim3(THREADS), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(kern, grid, dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -149,62 +159,65 @@ int launch_recompute(const float* x, const float* q, float* p, const float* a2, 
                      int64_t m2, int64_t lda2, cudaStream_t stream) {
   void* args[] = {&x, &q, &p, &a2, &y, &n, &kt, &k1, &ldx, &mode1, &m2, &lda2};
   return launch_cooperative((const void*)recompute_f32_kernel<MODE2>,
-                            phase_tiles(n, kt, m2), args, stream);
+                            phase_tiles(n, kt, m2), args, 0, stream);
 }
 
 // The bf16 forms.  Phase 1: P (n × kt, f32) = X·Q over k1 columns of X (n ×
-// ·, row stride ldx) with Q (k1 × kt), both bf16, tile 1 of gemm_bf16.cuh —
-// proj_stage[bf16]'s tile — in MODE1 (OVERWRITE, or CONTINUE for the last
-// slab of a seeded call).  Barrier.  Phase 2 as above: Y (m2 × kt) (+)=
-// A2ᵀ·P with the f32 tile, A2 bf16 (power_project_accumulate[bf16]: tile 3,
-// powerpass_sweep[bf16,f32]'s) or f32 (projgram[bf16]: A2 = P,
-// gram_sweep's).  So each is bitwise its staged pair, as in f32.
-union StagingBoth {
-  Tiles f32;
-  gemm_bf16::Tiles bf16;
-};
+// ·, row stride ldx) with Q (k1 × kt), both bf16, copied wx and wq bytes at
+// a time: tile 1 of gemm_bf16.cuh — proj_stage[bf16]'s wgmma tile — in
+// MODE1 (OVERWRITE, or CONTINUE for the last slab of a seeded call).
+// Barrier.  Phase 2 as above: Y (m2 × kt) (+)= A2ᵀ·P with the f32 tile, A2
+// bf16 (power_project_accumulate[bf16]: tile 3, powerpass_sweep[bf16,f32]'s)
+// or f32 (projgram[bf16]: A2 = P, gram_sweep's), staged in the ring's
+// shared memory.  So each is bitwise its staged pair, as in f32.
+static_assert(gemm_bf16::THREADS == THREADS, "both phases run on one block");
+static_assert(gemm_bf16::SMEM_BYTES >= (int)sizeof(Tiles) + 16, "phase 2 fits the ring");
 
 template <int MODE1, int MODE2, typename TA2>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(gemm_bf16::THREADS, gemm_bf16::MIN_BLOCKS)
 recompute_bf16_kernel(const bf16_bits* __restrict__ X, const bf16_bits* __restrict__ Q,
                       float* P, const TA2* A2, float* __restrict__ Y, int64_t n, int64_t kt,
-                      int64_t k1, int64_t ldx, int64_t m2, int64_t lda2) {
-  __shared__ __align__(16) StagingBoth sm;
+                      int64_t k1, int64_t ldx, int64_t m2, int64_t lda2, int wx, int wq) {
+  extern __shared__ __align__(16) unsigned char recompute_smem[];
   const int64_t tiles_n = (kt + BN - 1) / BN;
   const int64_t tiles_m1 = (n + BM - 1) / BM;
+  const uint32_t ring = gemm_bf16::ring_base(recompute_smem);
   for (int64_t t = blockIdx.x; t < tiles_m1 * tiles_n; t += gridDim.x)
-    gemm_bf16::mma_tile<false, MODE1>(X, Q, P, n, kt, k1, ldx, (t % tiles_m1) * BM,
-                                      (t / tiles_m1) * BN, sm.bf16);
+    gemm_bf16::wgmma_tile<false, MODE1>(X, Q, P, n, kt, k1, ldx, wx, wq, (t % tiles_m1) * BM,
+                                        (t / tiles_m1) * BN, ring);
   cg::this_grid().sync();  // every P tile written and visible
+  Tiles& sm = *reinterpret_cast<Tiles*>(recompute_smem);
   const int64_t tiles_m2 = (m2 + BM - 1) / BM;
   for (int64_t t = blockIdx.x; t < tiles_m2 * tiles_n; t += gridDim.x)
     gemm_tile<true, MODE2, true>(A2, P, Y, m2, kt, n, lda2, MODE2, (t % tiles_m2) * BM,
-                                 (t / tiles_m2) * BN, sm.f32);
+                                 (t / tiles_m2) * BN, sm);
 }
 
 template <int MODE1, int MODE2, typename TA2>
 int launch_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                           int64_t n, int64_t kt, int64_t k1, int64_t ldx, int64_t m2,
-                          int64_t lda2, cudaStream_t stream) {
+                          int64_t lda2, int wx, int wq, cudaStream_t stream) {
+  const int rc = gemm_bf16::check_operands<false>(x, q, n, kt, k1, ldx, wx, wq);
+  if (rc != 0) return rc;
   const bf16_bits* X = (const bf16_bits*)x;
   const bf16_bits* Q = (const bf16_bits*)q;
   float* P = (float*)p;
   const TA2* A2 = (const TA2*)a2;
   float* Y = (float*)y;
-  void* args[] = {&X, &Q, &P, &A2, &Y, &n, &kt, &k1, &ldx, &m2, &lda2};
+  void* args[] = {&X, &Q, &P, &A2, &Y, &n, &kt, &k1, &ldx, &m2, &lda2, &wx, &wq};
   return launch_cooperative((const void*)recompute_bf16_kernel<MODE1, MODE2, TA2>,
-                            phase_tiles(n, kt, m2), args, stream);
+                            phase_tiles(n, kt, m2), args, gemm_bf16::SMEM_BYTES, stream);
 }
 
 template <int MODE1, typename TA2>
 int recompute_bf16_mode2(const void* x, const void* q, void* p, const void* a2, void* y,
                          int64_t n, int64_t kt, int64_t k1, int64_t ldx, int64_t m2,
-                         int64_t lda2, int accumulate, cudaStream_t stream) {
+                         int64_t lda2, int accumulate, int wx, int wq, cudaStream_t stream) {
   return accumulate
       ? launch_recompute_bf16<MODE1, ACCUMULATE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2,
-                                                       lda2, stream)
+                                                       lda2, wx, wq, stream)
       : launch_recompute_bf16<MODE1, OVERWRITE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2,
-                                                      lda2, stream);
+                                                      lda2, wx, wq, stream);
 }
 
 // One fused bf16 launch: phase 1 in mode1 (OVERWRITE or CONTINUE) over k1
@@ -212,12 +225,12 @@ int recompute_bf16_mode2(const void* x, const void* q, void* p, const void* a2, 
 template <typename TA2>
 int recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                    int64_t n, int64_t kt, int64_t k1, int64_t ldx, int mode1, int64_t m2,
-                   int64_t lda2, int accumulate, cudaStream_t stream) {
+                   int64_t lda2, int accumulate, int wx, int wq, cudaStream_t stream) {
   return mode1 == CONTINUE
       ? recompute_bf16_mode2<CONTINUE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2, lda2,
-                                            accumulate, stream)
+                                            accumulate, wx, wq, stream)
       : recompute_bf16_mode2<OVERWRITE, TA2>(x, q, p, a2, y, n, kt, k1, ldx, m2, lda2,
-                                             accumulate, stream);
+                                             accumulate, wx, wq, stream);
 }
 
 // The seeded bf16 forms: bf16 Ω(seed) (d × kt) made slab by slab into
@@ -228,7 +241,7 @@ template <typename TA2>
 int recompute_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
                           long long slab_rows, const void* a2, void* y, long long n,
                           long long kt, long long d, long long m2, long long lda2,
-                          int accumulate, cudaStream_t st) {
+                          int accumulate, int wx, int wq, cudaStream_t st) {
   if (slab_rows <= 0 || slab_rows % gemm_bf16::BK != 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   for (long long k0 = 0; k0 < d; k0 += slab_rows) {
@@ -241,11 +254,11 @@ int recompute_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void
     int rc;
     if (k0 + ks < d)
       rc = mode1 == OVERWRITE
-          ? gemm_bf16::launch_mma<false, OVERWRITE>(window, slab, p, n, kt, ks, d, st)
-          : gemm_bf16::launch_mma<false, CONTINUE>(window, slab, p, n, kt, ks, d, st);
+          ? gemm_bf16::launch<false, OVERWRITE>(window, slab, p, n, kt, ks, d, wx, wq, st)
+          : gemm_bf16::launch<false, CONTINUE>(window, slab, p, n, kt, ks, d, wx, wq, st);
     else
       rc = recompute_bf16<TA2>(window, slab, p, a2, y, n, kt, ks, d, mode1, m2, lda2,
-                               accumulate, st);
+                               accumulate, wx, wq, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -312,18 +325,18 @@ int recompute_seeded_f32(const void* x, unsigned s0, unsigned s1, void* p, void*
 // then rows of C (+)= Pᵀ·P with the f32 tile.  a2 is P's window (f32).
 int projgram_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                   long long n, long long kt, long long d, long long m2, long long lda2,
-                  int accumulate, void* stream) {
+                  int accumulate, int wx, int wq, void* stream) {
   return recompute_bf16<float>(x, q, p, a2, y, n, kt, d, d, OVERWRITE, m2, lda2,
-                               accumulate, (cudaStream_t)stream);
+                               accumulate, wx, wq, (cudaStream_t)stream);
 }
 
 // recompute_f32 on bf16 B (as x), Q and A (as a2): P = B·Q on the tensor
 // cores into the f32 scratch p, then rows of ΔY (+)= Aᵀ·P with A widened.
 int power_recompute_bf16(const void* x, const void* q, void* p, const void* a2, void* y,
                          long long n, long long kt, long long d, long long m2,
-                         long long lda2, int accumulate, void* stream) {
+                         long long lda2, int accumulate, int wx, int wq, void* stream) {
   return recompute_bf16<bf16_bits>(x, q, p, a2, y, n, kt, d, d, OVERWRITE, m2, lda2,
-                                   accumulate, (cudaStream_t)stream);
+                                   accumulate, wx, wq, (cudaStream_t)stream);
 }
 
 // projgram_bf16 with Q = bf16(Ω(seed)) made slab by slab into `slab` (≥
@@ -332,9 +345,9 @@ int power_recompute_bf16(const void* x, const void* q, void* p, const void* a2, 
 int projgram_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void* slab,
                          long long slab_rows, const void* a2, void* y, long long n,
                          long long kt, long long d, long long m2, long long lda2,
-                         int accumulate, void* stream) {
+                         int accumulate, int wx, int wq, void* stream) {
   return recompute_seeded_bf16<float>(x, s0, s1, p, slab, slab_rows, a2, y, n, kt, d, m2,
-                                      lda2, accumulate, (cudaStream_t)stream);
+                                      lda2, accumulate, wx, wq, (cudaStream_t)stream);
 }
 
 // power_recompute_bf16 with Q = bf16(Ω(seed)), made as projgram_seeded_bf16
@@ -342,9 +355,25 @@ int projgram_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p, void*
 int power_recompute_seeded_bf16(const void* x, unsigned s0, unsigned s1, void* p,
                                 void* slab, long long slab_rows, const void* a2, void* y,
                                 long long n, long long kt, long long d, long long m2,
-                                long long lda2, int accumulate, void* stream) {
+                                long long lda2, int accumulate, int wx, int wq,
+                                void* stream) {
   return recompute_seeded_bf16<bf16_bits>(x, s0, s1, p, slab, slab_rows, a2, y, n, kt, d,
-                                          m2, lda2, accumulate, (cudaStream_t)stream);
+                                          m2, lda2, accumulate, wx, wq, (cudaStream_t)stream);
+}
+
+// The blocks of the fused bf16 kernel (power != 0: the power form, else
+// projgram's) that one SM keeps resident at the wgmma tile's dynamic shared
+// memory, by the occupancy API: the cooperative grid's blocks per SM.
+int recompute_bf16_blocks_per_sm(int power, int* out) {
+  const void* kern = power
+      ? (const void*)recompute_bf16_kernel<OVERWRITE, OVERWRITE, bf16_bits>
+      : (const void*)recompute_bf16_kernel<OVERWRITE, OVERWRITE, float>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         gemm_bf16::SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, THREADS,
+                                                        gemm_bf16::SMEM_BYTES);
+  return (int)err;
 }
 
 const char* recompute_error_string(int code) {

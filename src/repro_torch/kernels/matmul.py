@@ -96,6 +96,11 @@ _SHORT = {f32: "f32", bf16: "bf16"}
 #: copy widths :func:`~.plan.copies` allows its operands.
 RING = frozenset({"gemm_nn_f32", "gemm_tn_f32", "gemm_tn_bf16_f32", "proj_stage_seeded_f32",
                   "recompute_seeded_f32"})
+#: The C functions that run the bf16 tensor-core tile (``csrc/gemm_bf16.cuh``):
+#: each takes the copy width of its two bf16 operands (:func:`~.plan.copy_bytes`).
+WGMMA = frozenset({"gemm_nn_bf16", "gemm_tn_bf16", "proj_stage_seeded_bf16", "projgram_bf16",
+                   "power_recompute_bf16", "projgram_seeded_bf16",
+                   "power_recompute_seeded_bf16"})
 
 
 class Form(NamedTuple):
@@ -159,6 +164,15 @@ def _ring(fn: str, M: int, N: int, a: tuple[int, int, int], b: tuple[int, int, i
     return plan.f32_tile(M, N), plan.copies(a, b)
 
 
+def _widths(fn: str, a: tuple[int, int, int], b: tuple[int, int, int]) -> tuple:
+    """The bf16 tile's two extra arguments for C function ``fn`` — the copy
+    widths in bytes of its operands A and B, each ``(address, row stride,
+    itemsize)`` — or none for another kernel."""
+    if fn not in WGMMA:
+        return ()
+    return plan.copy_bytes(*a), plan.copy_bytes(*b)
+
+
 def _operand(t: torch.Tensor, row_stride: int) -> tuple[int, int, int]:
     return t.data_ptr(), row_stride, t.element_size()
 
@@ -171,8 +185,9 @@ def gemm_nn(f: Form, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{f.label}: contraction mismatch {K} vs {K2}")
     _grid_ok(f.label, M, N)
     out = torch.empty((M, N), dtype=f32, device=x.device)
+    a, b = _operand(x, K), _operand(q, N)
     build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), out.data_ptr(), M, N, K,
-                 *_ring(f.fn, M, N, _operand(x, K), _operand(q, N)), _stream(x))
+                 *_ring(f.fn, M, N, a, b), *_widths(f.fn, a, b), _stream(x))
     return out
 
 
@@ -186,9 +201,10 @@ def gemm_nn_seeded(f: Form, x: torch.Tensor, seed, kt: int) -> torch.Tensor:
     _grid_ok(f.label, M, kt)
     out = torch.empty((M, kt), dtype=f32, device=x.device)
     slab = torch.empty((min(K, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
+    a, b = _operand(x, K), _operand(slab, kt)
     build.launch(f.label, f.fn, x.data_ptr(), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
                  out.data_ptr(), slab.data_ptr(), SEEDED_SLAB, M, kt, K,
-                 *_ring(f.fn, M, kt, _operand(x, K), _operand(slab, kt)), _stream(x))
+                 *_ring(f.fn, M, kt, a, b), *_widths(f.fn, a, b), _stream(x))
     return out
 
 
@@ -205,9 +221,9 @@ def gemm_tn(f: Form, x: torch.Tensor, y: torch.Tensor,
         _check_out(f.label, out, (M, N), x.device)
     else:
         out = torch.empty((M, N), dtype=f32, device=x.device)
+    a, b = _operand(x, M), _operand(y, N)
     build.launch(f.label, f.fn, x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                 int(accumulate), *_ring(f.fn, M, N, _operand(x, M), _operand(y, N)),
-                 _stream(x))
+                 int(accumulate), *_ring(f.fn, M, N, a, b), *_widths(f.fn, a, b), _stream(x))
     return out
 
 
@@ -223,13 +239,14 @@ def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.T
     a2_ptr, y_ptr = a2.data_ptr() + a2.element_size() * r0, y.data_ptr() + 4 * r0 * kt
     if isinstance(q, torch.Tensor):
         build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr, y_ptr,
-                     n, kt, d, m2, lda2, int(accumulate), _stream(x))
+                     n, kt, d, m2, lda2, int(accumulate),
+                     *_widths(f.fn, _operand(x, d), _operand(q, kt)), _stream(x))
         return
     slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
+    a, b = _operand(x, d), _operand(slab, kt)
     build.launch(f.label, f.fn, x.data_ptr(), q[0] & 0xFFFFFFFF, q[1] & 0xFFFFFFFF,
                  p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
-                 int(accumulate), *_ring(f.fn, n, kt, _operand(x, d), _operand(slab, kt)),
-                 _stream(x))
+                 int(accumulate), *_ring(f.fn, n, kt, a, b), *_widths(f.fn, a, b), _stream(x))
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,12 @@ Plans come from the port's own tiles, never from the TPU's
 picks out of :data:`F32_TILES` (``csrc/gemm_ring.cuh``); the fused
 recompute kernels from ``csrc/gemm.cuh``'s 128 × 128 tile per 256-thread
 block (16,640 bytes of staging, :data:`TILE`, :data:`SMEM_BYTES`,
-:data:`RESIDENT_BLOCKS`); the bf16 tensor-core tiles from
-``csrc/gemm_bf16.cuh``'s (the same output tile, 18,944 bytes).  Only the
-buckets of the recompute schedule share a number with the reference, and
-for a reason of their own (:data:`ONE_BUCKET_ELEMS`).
+:data:`RESIDENT_BLOCKS`); the bf16 tensor-core products, staged or fused,
+from ``csrc/gemm_bf16.cuh``'s wgmma tile (the same output tile, two
+warpgroups, one block per SM, a ring in :data:`SMEM_BYTES_BF16` of
+dynamic shared memory: :data:`BF16_THREADS`, :data:`BF16_BLOCKS_PER_SM`).
+Only the buckets of the recompute schedule share a number with the
+reference, and for a reason of their own (:data:`ONE_BUCKET_ELEMS`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,15 @@ F32, BF16 = torch.float32, torch.bfloat16
 TILE = 128  # gemm.cuh and gemm_bf16.cuh: output rows and columns per block (BM = BN)
 THREADS = 256
 SMEM_BYTES = 4 * 16 * (TILE + 4) + 4 * 16 * TILE  # gemm.cuh Tiles: As + Bs
-SMEM_BYTES_BF16 = 2 * TILE * (32 + 8) + 2 * 32 * (TILE + 8)  # gemm_bf16.cuh Tiles: A + B
+#: The bf16 tensor-core tile (``csrc/gemm_bf16.cuh``): two warpgroups of
+#: 64 × 128 outputs per block, one block per SM (≈ 230 registers a
+#: thread); a ring of BF16_STAGES stages, each BF16_BK contraction steps of
+#: A (128 × 64) and B (64 × 128) in bf16, plus 1 KB to align its 128-byte
+#: swizzle atoms.  The fused bf16 kernels run on this block too (their
+#: f32 phase 2 reuses the ring's shared memory).
+BF16_THREADS, BF16_BLOCKS_PER_SM = 256, 1
+BF16_BK, BF16_STAGES, BF16_ALIGN = 64, 6, 1024
+SMEM_BYTES_BF16 = BF16_STAGES * 2 * (2 * TILE * BF16_BK) + BF16_ALIGN
 #: The H100's f32 rate on the CUDA cores over its dense bf16 tensor-core
 #: rate (67 / 989 TFLOP/s, data sheet): what one tensor-core FLOP costs in
 #: the schedule rule's f32 units (:func:`weighted_cost`).
@@ -55,8 +65,9 @@ RING_STAGES = 4
 SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 #: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060 in f32 (17 MB
 #: in bf16), inside the H100's 50 MB L2.  A multiple of every tile's
-#: staging depth (16 in f32, the ring's and the fused tile's; 32 in bf16),
-#: so slab edges keep each element's chain (the C side checks).
+#: staging depth (32 and 16 in f32, the ring's and the fused tile's; 64 in
+#: bf16, whose unit is 16), so slab edges keep each element's chain (the C
+#: side checks).
 SEEDED_SLAB = 4096
 
 #: The largest accumulator bucket — rows × k̃p of ΔY (da × k̃p) or of
@@ -145,12 +156,25 @@ def ring_smem(tile: int, a_itemsize: int = 4) -> int:
     return max(ring, SMEM_PER_SM // (per_sm + 1) - SMEM_RESERVED + 16)
 
 
+def copy_bytes(ptr: int, row_stride: int, itemsize: int) -> int:
+    """The widest copy, in bytes, that the bf16 tile may stage a row-major
+    operand at address ``ptr`` with ``row_stride`` elements per row with:
+    16, 8 or 4 (``cp.async``) where base and row stride are aligned to it,
+    else one element at a time (through a register).  A bf16 Q or P row is
+    8-byte aligned at k̃ = 2060, 4-byte at 970 and 2-byte at 67 or 3; a
+    Europarl row of X takes 16."""
+    for width in (16, 8, 4):
+        if ptr % width == 0 and row_stride * itemsize % width == 0:
+            return width
+    return itemsize
+
+
 def vector_copies(ptr: int, row_stride: int, itemsize: int) -> bool:
     """Whether a row-major operand at address ``ptr`` with ``row_stride``
     elements per row can be staged 16 bytes per copy: a 16-byte aligned
     base and row stride.  Else the kernel copies 4 bytes (an f32 element)
     at a time, or a bf16 element through a register."""
-    return ptr % 16 == 0 and row_stride * itemsize % 16 == 0
+    return copy_bytes(ptr, row_stride, itemsize) == 16
 
 
 def copies(a: tuple[int, int, int], b: tuple[int, int, int]) -> int:
@@ -209,7 +233,7 @@ def gemm_nn(M: int, N: int, K: int, *, cont: bool = False, dtype=F32) -> LaunchP
     tensor cores); ``cont`` continues P's chains (reads P)."""
     flops = 2 * M * N * K
     if dtype == BF16:
-        return LaunchPlan("gemm_nn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (THREADS,),
+        return LaunchPlan("gemm_nn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (BF16_THREADS,),
                           SMEM_BYTES_BF16, flops,
                           2 * (M * K + K * N) + 4 * M * N * (2 if cont else 1),
                           tc_flops=flops)
@@ -238,7 +262,7 @@ def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
     nbytes = itemsize(dtype) * K * M + itemsize(p_dtype) * K * N + 4 * M * N * (
         2 if accumulate else 1)
     if dtype == BF16 and p_dtype == BF16:
-        return LaunchPlan("gemm_tn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (THREADS,),
+        return LaunchPlan("gemm_tn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (BF16_THREADS,),
                           SMEM_BYTES_BF16, flops, nbytes, tc_flops=flops)
     if p_dtype != F32:
         raise TypeError(f"no TN kernel takes {dtype} X with {p_dtype} Y")
@@ -260,13 +284,15 @@ def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
     m2-row accumulator bucket.  ``nbytes`` depends on which operands are
     the entry point's inputs and outputs.  The bf16 kernels
     (``projgram_bf16``, ``power_recompute_bf16``) run the projection on
-    the tensor cores and the accumulation on the CUDA cores."""
+    the tensor cores and the accumulation on the CUDA cores, on the bf16
+    tile's block: one per SM, its ring's dynamic shared memory."""
     tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
     proj = 2 * n * k1 * kt
-    bf16 = kernel != "recompute_f32"
-    return LaunchPlan(kernel, (min(RESIDENT_BLOCKS, tiles),), (THREADS,),
-                      max(SMEM_BYTES, SMEM_BYTES_BF16) if bf16 else SMEM_BYTES,
-                      proj + 2 * n * m2 * kt, nbytes, tc_flops=proj if bf16 else 0)
+    if kernel == "recompute_f32":
+        return LaunchPlan(kernel, (min(RESIDENT_BLOCKS, tiles),), (THREADS,), SMEM_BYTES,
+                          proj + 2 * n * m2 * kt, nbytes)
+    return LaunchPlan(kernel, (min(BF16_BLOCKS_PER_SM * SMS, tiles),), (BF16_THREADS,),
+                      SMEM_BYTES_BF16, proj + 2 * n * m2 * kt, nbytes, tc_flops=proj)
 
 
 def _per_bucket(rows: int, kt: int, one_bucket) -> tuple[LaunchPlan, ...]:

@@ -70,12 +70,19 @@ def test_tile_set_matches_the_kernel_source():
 
 def test_every_compiled_bk_divides_the_seeded_slab():
     """A seeded slab edge falls on a staging step of every tile that
-    contracts a slab: the ring's, the fused f32 tile's and the bf16 tiles'."""
+    contracts a slab: the ring's, the fused f32 tile's and the bf16 wgmma
+    tile's (and of the old bf16 tile, kept as a witness); the bf16 tile's
+    unit — one k16 product from zero, one add — divides its stage."""
     bks = {f.name: int(m) for f in sorted(CSRC.glob("*.cuh"))
            for m in re.findall(r"constexpr int BK = (\d+);", f.read_text())}
-    assert set(bks) == {"gemm.cuh", "gemm_bf16.cuh", "gemm_ring.cuh"}
+    assert set(bks) == {"gemm.cuh", "gemm_bf16.cuh", "gemm_bf16_mma.cuh", "gemm_ring.cuh"}
     assert all(plan.SEEDED_SLAB % bk == 0 for bk in bks.values())
     assert bks["gemm_ring.cuh"] == plan.RING_BK and plan.RING_BK % bks["gemm.cuh"] == 0
+    assert bks["gemm_bf16.cuh"] == plan.BF16_BK
+    src = (CSRC / "gemm_bf16.cuh").read_text()
+    (step,) = map(int, re.findall(r"constexpr int STEP = (\d+);", src))
+    assert step == 16 and plan.BF16_BK % step == 0 and plan.SEEDED_SLAB % step == 0
+    assert "m64n64k16.f32.bf16.bf16" in src  # each half of a step one wgmma, k16 deep
 
 
 @pytest.mark.parametrize("row_stride,itemsize,want", [
@@ -120,3 +127,89 @@ def test_staged_plans_take_the_picked_tile():
         for w in (4, 2):
             need = plan.ring_smem(tile, w) + plan.SMEM_RESERVED
             assert per_sm * need <= plan.SMEM_PER_SM < (per_sm + 1) * need
+
+
+def _bf16_constants() -> dict:
+    src = (CSRC / "gemm_bf16.cuh").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_bf16_tile_constants_match_the_kernel_source():
+    """``plan``'s bf16 tile — threads, blocks per SM, ring depth and shared
+    memory — is ``gemm_bf16.cuh``'s: two warpgroups on the 128 × 128 output
+    tile, one block per SM, STAGES stages of A (BM × BK) and B (BK × BN) in
+    bf16 plus the swizzle atoms' alignment."""
+    c = _bf16_constants()
+    assert (c["BM"], c["BN"]) == (plan.TILE, plan.TILE)
+    assert c["THREADS"] == plan.BF16_THREADS == 2 * 128
+    assert c["MIN_BLOCKS"] == plan.BF16_BLOCKS_PER_SM == 1
+    assert (c["BK"], c["STAGES"], c["ALIGN"]) == (plan.BF16_BK, plan.BF16_STAGES,
+                                                   plan.BF16_ALIGN)
+    ring = c["STAGES"] * 2 * (c["BM"] * c["BK"] + c["BK"] * c["BN"])
+    assert plan.SMEM_BYTES_BF16 == ring + c["ALIGN"] <= 232448  # an H100 block's opt-in
+    # one block per SM by shared memory as well as by registers
+    assert 2 * (plan.SMEM_BYTES_BF16 + plan.SMEM_RESERVED) > plan.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("entry,args,kernel,tiles", [
+    (plan.plan_proj_stage, (8192, 2 ** 19, 2060), "gemm_nn_bf16", (17, 64)),
+    (plan.plan_matmul_nn, (4096, 2 ** 18, 2060), "gemm_nn_bf16", (17, 32)),
+    (plan.plan_powerpass_sweep, (4096, 2 ** 18, 2060), "gemm_tn_bf16", (17, 2048)),
+    (plan.plan_gram_sweep, (4096, 2060), "gemm_tn_bf16", (17, 17)),
+    (plan.plan_matmul_tn, (4096, 2 ** 18, 2060), "gemm_tn_bf16", (17, 2048)),
+])
+def test_bf16_staged_plans_take_the_wgmma_tile(entry, args, kernel, tiles):
+    (p,) = entry(*args, dtype=torch.bfloat16)
+    assert p.kernel == kernel and p.grid == tiles
+    assert p.block == (plan.BF16_THREADS,) and p.smem_bytes == plan.SMEM_BYTES_BF16
+
+
+def test_bf16_fused_and_seeded_plans_take_the_wgmma_tile():
+    """The fused bf16 kernels' cooperative grid is one block per SM, at most
+    as many as tiles; every seeded slab launch takes the tile too."""
+    bf16 = torch.bfloat16
+    launches = (plan.plan_projgram(8192, 2 ** 19, 970, dtype=bf16)
+                + plan.plan_power_project_accumulate(8192, 1024, 2 ** 19, 970, dtype=bf16)
+                + plan.plan_projgram_seeded(8192, 9001, 970, dtype=bf16)
+                + plan.plan_power_project_accumulate_seeded(512, 256, 192, 32, dtype=bf16)
+                + plan.plan_proj_stage_seeded(8192, 2 ** 19, 2060, dtype=bf16))
+    fused = [p for p in launches if p.kernel in ("projgram_bf16", "power_recompute_bf16")]
+    assert len(fused) == 4
+    assert [p.grid for p in fused] == [(132,), (132,), (132,), (4,)]
+    for p in launches:
+        if p.kernel.startswith("omega_fill"):
+            continue
+        assert p.block == (plan.BF16_THREADS,) and p.smem_bytes == plan.SMEM_BYTES_BF16
+        assert p.tc_flops > 0
+
+
+@pytest.mark.parametrize("row_stride,want", [
+    (2060, 8),     # Q or P at k̃ = 2060: a 4,120-byte row
+    (970, 4),      # k̃ = 970: 1,940 bytes
+    (67, 2),       # the ragged k̃ = 67: through registers
+    (3, 2),        # k̃ = 3
+    (2 ** 18, 16),  # a row of X: one model shard's
+    (2 ** 19, 16),  # a Europarl row of X
+])
+def test_bf16_copy_width(row_stride, want):
+    """Q and P at the main path's widths go to the narrower copies, X rows
+    to the 16-byte one; a base one element in narrows any operand to 2."""
+    assert plan.copy_bytes(4096, row_stride, 2) == want
+    assert (want == 16) is plan.vector_copies(4096, row_stride, 2)
+    assert plan.copy_bytes(4096 + 2, row_stride, 2) == 2
+
+
+def test_bf16_launchers_pass_the_copy_widths():
+    """The bf16 tile's C functions take (width of A, width of B) after their
+    other arguments; the ring's and the rest take none."""
+    x, q = torch.empty(8192, 2 ** 10, dtype=torch.bfloat16), torch.empty(2 ** 10, 2060,
+                                                                          dtype=torch.bfloat16)
+    a, b = matmul._operand(x, 2 ** 10), matmul._operand(q, 2060)
+    for fn in ("gemm_nn_bf16", "gemm_tn_bf16", "proj_stage_seeded_bf16", "projgram_bf16",
+               "power_recompute_bf16", "projgram_seeded_bf16", "power_recompute_seeded_bf16"):
+        assert matmul._widths(fn, a, b) == (16, 8)
+        assert build.SIGNATURES[build._LIB_OF[fn]][fn][-3:-1] == [build._int, build._int]
+    assert matmul._widths("gemm_nn_f32", a, b) == ()
+    assert matmul._widths("gemm_tn_bf16_f32", a, b) == ()
+    assert set(matmul.WGMMA) == {fn for forms in matmul.FORMS.values() for fn in forms.values()
+                                 if fn.endswith("_bf16") and fn != "omega_fill_bf16"}
