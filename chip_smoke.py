@@ -11,26 +11,30 @@ Phases, each of which fails the run by raising:
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (three ``nvcc`` started together), prints ptxas's registers and spills
    for every instance of the staged f32 kernel (``gemm_ring.cuh``), of the
-   bf16 wgmma tile (``gemm_bf16.cuh``) and of the fused bf16 kernels, and
-   fails if ptxas reports that it serialized their wgmma products; counts
-   the HGMMA and HMMA instructions of each kernel in ``cuobjdump -sass``:
-   every kernel on the wgmma tile, staged or fused, must issue HGMMA, the
-   old mma.sync tile kept as a witness HMMA only, the f32 kernels and the
-   generator neither; then the occupancy API's blocks per SM of each f32
-   tile must be the plan's (``plan.F32_TILES``), so the printed waves are
-   the card's, and of the wgmma tile and the fused bf16 kernels at their
-   dynamic shared memory ``plan.BF16_BLOCKS_PER_SM``;
+   bf16 wgmma tile (``gemm_bf16.cuh``) and of the fused kernels, f32 (both
+   phases on the ring's 128 × 128 tile, each mode pair) and bf16, fails if a
+   fused instance spills or if ptxas reports that it serialized the wgmma
+   products of a bf16 kernel; counts the HGMMA and HMMA instructions of
+   each kernel in ``cuobjdump -sass``: every kernel on the wgmma tile,
+   staged or fused, must issue HGMMA, the old mma.sync tile kept as a
+   witness HMMA only, the f32 kernels and the generator neither; then the
+   occupancy API's blocks per SM of each f32 tile, staged and (128 × 128)
+   in the fused f32 kernel, must be the plan's (``plan.F32_TILES``), so
+   the printed waves and cooperative grids are the card's, and of the
+   wgmma tile and the fused bf16 kernels at their dynamic shared memory
+   ``plan.BF16_BLOCKS_PER_SM``;
 3. kernels — each of the four GEMM entry points against its plain
    PyTorch version on the card, at the main path's shapes (8192 rows,
    d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
    small shapes: max error, bitwise repeatability, median times beside
    the plain version, one ``torch.matmul`` of the same product
    (yardstick only) and the bound, and the tile ``plan.f32_tile`` picked
-   with its tile count and waves; then the old tile's witness at the main
+   with its tile count and waves; then the fused power pass at the main
    path's k̃ = 2060: one ``power_project_accumulate`` recompute on the
-   narrow A (8192 × 1024), both phases on ``gemm.cuh``'s tile, BITWISE
-   ``powerpass_sweep(A, proj_stage(B, Q))`` on the staged kernels, which
-   covers the 12-column edge tile of N = 2060;
+   narrow A (8192 × 1024) BITWISE ``powerpass_sweep(A, proj_stage(B, Q))``
+   on the staged kernels, where every operand of both fused phases takes
+   the 16-byte copies, and the fused kernel's 128 × 128 tiles and the
+   staged stage's 128 × 64 ones both end in a 12-column edge tile;
 4. omega — ``omega_fill`` makes the full (2^19, 2060) Ω(seed): within
    8 ulp of the plain generator on the card and, at three slabs, of the
    plain CPU ``dense_omega``; a slab at r0 = 2^18 + 16 is bitwise that
@@ -46,10 +50,11 @@ Phases, each of which fails the run by raising:
    (8192 × 2^19 → 970; the power pair's A 8192 × 1024), at a ragged shape
    (333 × 9001 → 67), at one of several buckets and at k̃ = 2060 (the
    staged sweep on the 128 × 64 tile, ragged in rows and contraction): each
-   against its
-   plain version (4·√K·u of the largest magnitude) and BITWISE against
-   its staged pair (and, seeded, against the materialized recompute on
-   ``omega_fill(seed)``), with times beside the staged pair's;
+   against its plain version (4·√K·u of the largest magnitude) and BITWISE
+   against its staged pair (and, seeded, against the materialized
+   recompute on ``omega_fill(seed)``), with times beside the staged
+   pair's and the library call's, and the ratio of each (phase 2 reads P
+   through 4-byte copies at k̃ = 970 and 67, 16-byte ones at 2060);
 7. fit — the smoke width on the card (kernels engine, torch engine,
    ``--omega seeded``; both passes resolve to recompute, so the fused
    power-pass kernels run inside a fit), then the main
@@ -348,30 +353,40 @@ def phase_kernels(dev, a, b) -> dict:
     if not torch.equal(acc, acc0 + powerpass_sweep(a, pb)):
         raise AssertionError("powerpass_sweep(out=) is not acc + ΔY bitwise")
     print("[smoke] powerpass_sweep(out=acc) == acc + ΔY bitwise: True", flush=True)
-    old_tile_witness(a, b, Qb, pb)
+    fused_power_witness(a, b, Qb, pb)
     return rows
 
 
-def old_tile_witness(a, b, q, p) -> None:
-    """The staged kernels against the old tile at the main path's k̃: one
-    fused ``power_project_accumulate`` (both phases on ``gemm.cuh``'s tile)
-    on the narrow A against ``powerpass_sweep(A, P)`` with P =
-    ``proj_stage(B, Q)`` (``p``), bitwise."""
+def fused_power_witness(a, b, q, p) -> None:
+    """The fused kernels against the staged ones at the main path's k̃ =
+    2060, where both fused phases copy every operand 16 bytes at a time, the
+    fused kernel's 128 × 128 tiles end in a 12-column edge tile, and the
+    staged stage runs the 128 × 64 tile ``plan.f32_tile`` picks: one fused
+    ``power_project_accumulate`` on the narrow A against
+    ``powerpass_sweep(A, P)`` with P = ``proj_stage(B, Q)`` (``p``),
+    bitwise."""
     import torch
 
     from repro_torch.kernels import plan, power_project_accumulate, powerpass_sweep
 
     an = a[:, :DA_NARROW].contiguous()
     kt = q.shape[1]
+    # phase 1: B and Q; phase 2: A's first bucket and P (a fresh, aligned tensor)
+    vec = (plan.copies((b.data_ptr(), b.shape[1], 4), (q.data_ptr(), kt, 4)),
+           plan.copies((an.data_ptr(), DA_NARROW, 4), (0, kt, 4)))
     fused = power_project_accumulate(an, b, q, schedule="recompute")
     staged = powerpass_sweep(an, p)
     same = torch.equal(fused, staged)
-    print(tile_line("witness sweep", DA_NARROW, kt), flush=True)
-    print(f"[smoke] old-tile witness at k̃ = {kt}, A {tuple(an.shape)}: fused power pass "
-          f"({len(plan.buckets(DA_NARROW, kt))} launches, gemm.cuh's tile) == powerpass_sweep("
-          f"A, proj_stage(B, Q)) bitwise: {same}", flush=True)
+    print(tile_line("staged proj_stage", b.shape[0], kt), flush=True)
+    print(f"[smoke] fused power pass at k̃ = {kt}, A {tuple(an.shape)}: "
+          f"{len(plan.buckets(DA_NARROW, kt))} launches on the "
+          f"{'×'.join(map(str, plan.F32_TILES[plan.FUSED_F32_TILE][:2]))} tile, copies "
+          f"(plan.copies, 3 = both operands 16 bytes) phase 1 {vec[0]}, phase 2 {vec[1]}; == "
+          f"powerpass_sweep(A, proj_stage(B, Q)) bitwise: {same}", flush=True)
+    if vec != (3, 3):
+        raise AssertionError("the k̃ = 2060 fused power pass does not take the 16-byte copies")
     if not same:
-        raise AssertionError("the staged kernels are not the old tile's chains bitwise")
+        raise AssertionError("the fused power pass is not its staged pair bitwise at k̃ = 2060")
 
 
 def ulp(x, y):
@@ -607,6 +622,7 @@ def phase_recompute(dev, a, b) -> dict:
     a_narrow = a[:, :DA_NARROW].contiguous()
     cases, omega = fused_cases(b, q, a_narrow, seed)
     fused_extras(b, q, a_narrow, seed, omega)
+    print(tile_line("fused P (and the staged pair's P)", n, KT_910), flush=True)
     rows = {}
     for name, (rec, staged, plain, lib, Ks, flops, nbytes, int_ops) in cases.items():
         err = check_fused(name, rec, staged, plain, Ks)
@@ -614,10 +630,12 @@ def phase_recompute(dev, a, b) -> dict:
              "plain_ms": time_ms(plain, 3),
              "library_ms": None if lib is None else time_ms(lib, 3)}
         rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, int_ops), **t)
-        lib_txt = "none" if lib is None else f"{t['library_ms']:.3f} ms"
+        lib_txt = ("none" if lib is None else
+                   f"{t['library_ms']:.3f} ms (fused ÷ library {t['ms'] / t['library_ms']:.3f})")
         print(f"[smoke] {name} at {(n, d)} → {KT_910}: kernel {t['ms']:.3f} ms, staged pair "
-              f"{t['staged_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library {lib_txt}, "
-              f"bound {rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}); "
+              f"{t['staged_ms']:.3f} ms (fused ÷ staged {t['ms'] / t['staged_ms']:.3f}), plain "
+              f"{t['plain_ms']:.3f} ms, library {lib_txt}, bound "
+              f"{rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}); "
               f"{flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
     # the p = 910 power pass at full width (da = 2^19): the rule stages it;
     # a recompute would issue one launch per ΔY bucket, each the narrow
@@ -888,7 +906,8 @@ def phase_bf16_kernels(dev, a16, b16) -> dict:
         rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, tc_flops=tc_flops), **t)
         lib_txt = ("none" if t["library_ms"] is None else
                    f"{t['library_ms']:.3f} ms ({'f32 A upcast' if lib is None else 'bf16 out'})")
-        staged_txt = f", staged pair {t['staged_ms']:.3f} ms" if "staged_ms" in t else ""
+        staged_txt = (f", staged pair {t['staged_ms']:.3f} ms (fused ÷ staged "
+                      f"{t['ms'] / t['staged_ms']:.3f})" if "staged_ms" in t else "")
         print(f"[smoke] {name}: kernel {t['ms']:.3f} ms{staged_txt}, plain "
               f"{t['plain_ms']:.3f} ms, library {lib_txt}, bound {rows[name]['bound_ms']:.3f} "
               f"ms ({rows[name]['bound_by']}); {(tc_flops + flops) / t['ms'] / 1e9:.1f} TFLOP/s",
@@ -1653,12 +1672,14 @@ def phase_stream_bf16(dev) -> dict:
 def ring_spills() -> None:
     """ptxas's registers and spills for each instance of the staged f32
     kernel (``gemm_ring.cuh`` ``ring_kernel``: NN or TN, its mode, its A
-    type and its tile) and of the bf16 wgmma tile (``gemm_bf16.cuh``
-    ``wgmma_kernel``: NN or TN and its mode; the fused bf16 kernels
-    ``recompute_bf16_kernel``: phase 1's mode, phase 2's, A's type), from
-    the build's ``-Xptxas -v`` output; any warning of ptxas that names
-    wgmma (it serializes the products when it cannot keep them in flight)
-    fails the run."""
+    type and its tile), of the bf16 wgmma tile (``gemm_bf16.cuh``
+    ``wgmma_kernel``: NN or TN and its mode) and of the fused kernels
+    (``recompute_f32_kernel``: phase 1's mode, phase 2's;
+    ``recompute_bf16_kernel``: phase 1's mode, phase 2's, A's type; and
+    ``fused_tile``, the phase tile they call), from the build's ``-Xptxas
+    -v`` output.  A fused instance or phase tile that spills fails the
+    run, and so does any warning of ptxas that names wgmma (it
+    serializes the products when it cannot keep them in flight)."""
     import re
 
     from repro_torch.kernels import build
@@ -1677,13 +1698,21 @@ def ring_spills() -> None:
         if k:
             return (f"fused bf16 phase 1 {modes[k.group(1)]}, phase 2 {modes[k.group(2)]}, "
                     f"{'bf16' if k.group(3) == 't' else 'f32'} A2")
+        k = re.search(r"recompute_f32_kernelILi(\d)ELi(\d)E", fn)
+        if k:
+            return f"fused f32 phase 1 {modes[k.group(1)]}, phase 2 {modes[k.group(2)]}"
+        k = re.search(r"fused_tileILb(\d)ELi(\d)E(\w)", fn)
+        if k:
+            return (f"fused phase tile {'TN' if k.group(1) == '1' else 'NN'} {modes[k.group(2)]} "
+                    f"{'bf16' if k.group(3) == 't' else 'f32'} A")
         return None
 
-    serialized = []
+    serialized, spilled, fused = [], [], set()
     for lib, entry in build.BUILD_LOG.items():
         fn, rows = None, []
         for line in entry["log"].splitlines():
-            if "wgmma" in line and "arning" in line:
+            # C7514 (and its kin) come as info or as a warning, by toolkit
+            if "C7514" in line or ("wgmma" in line and ("arning" in line or "serialized" in line)):
                 serialized.append(line.strip())
             m = re.search(r"Function properties for (\S+)", line) or re.search(
                 r"Compiling entry function '(\S+)'", line)
@@ -1699,19 +1728,30 @@ def ring_spills() -> None:
                 continue
             rows.append(f"{name}: " + (f"{spill.group(1)} B spill stores, {spill.group(2)} B "
                                        f"spill loads" if spill else f"{regs.group(1)} registers"))
+            if name.startswith("fused"):
+                if not name.startswith("fused phase"):
+                    fused.add(name)
+                if spill and (int(spill.group(1)) or int(spill.group(2))):
+                    spilled.append(rows[-1])
         for row in rows:
             print(f"[smoke] ptxas {lib}: {row}", flush=True)
     for line in serialized:
         print(f"[smoke] ptxas: {line}", flush=True)
     if serialized:
         raise AssertionError("ptxas serialized the wgmma products of a bf16 kernel")
+    if spilled:
+        raise AssertionError(f"fused kernel instances spill: {spilled}")
+    if build.BUILD_LOG.get("recompute_f32") and len(fused) != 12:
+        raise AssertionError(f"ptxas reported {len(fused)} fused kernels, not 4 f32 + 8 bf16")
 
 
 def tile_occupancy() -> None:
     """Each f32 tile's blocks per SM on this card (the occupancy API) must be
-    the plan's, or the waves the rule models are not the card's; so must
-    the bf16 wgmma tile's, staged and fused, at its dynamic shared memory
-    (the fused kernels' cooperative grid is sized from it)."""
+    the plan's, staged and in the fused f32 kernel on ``plan.FUSED_F32_TILE``
+    (whose cooperative grid is sized from it), or the waves the rule models
+    are not the card's; so
+    must the bf16 wgmma tile's, staged and fused, at its dynamic shared
+    memory."""
     from repro_torch.kernels import build, plan
 
     for tile, (bm, bn, threads, per_sm) in enumerate(plan.F32_TILES):
@@ -1721,6 +1761,13 @@ def tile_occupancy() -> None:
               flush=True)
         if got != [per_sm, per_sm]:
             raise AssertionError(f"f32 tile {tile}: {got} blocks per SM, the plan has {per_sm}")
+        if tile == plan.FUSED_F32_TILE:
+            fused = build.fused_f32_blocks_per_sm()
+            print(f"[smoke] fused f32 kernel (tile {tile}): blocks per SM {fused}, plan "
+                  f"{per_sm}", flush=True)
+            if fused != per_sm:
+                raise AssertionError(f"fused f32 kernel: {fused} blocks per SM, the plan has "
+                                     f"{per_sm}")
     got = build.bf16_blocks_per_sm()
     print(f"[smoke] bf16 wgmma tile (128×128, {plan.BF16_THREADS} threads, "
           f"{plan.SMEM_BYTES_BF16} B of dynamic shared memory): blocks per SM {got}, plan "

@@ -2,7 +2,7 @@
 
 Eleven entry points, one launch counter per operand form, over the CUDA
 kernels in ``csrc/gemm_f32.cu``, ``csrc/gemm_bf16.cu``,
-``csrc/recompute_f32.cu`` (on the tiles of ``csrc/gemm.cuh`` and
+``csrc/recompute_f32.cu`` (on the tiles of ``csrc/gemm_ring.cuh`` and
 ``csrc/gemm_bf16.cuh``) and ``csrc/rand.cuh``:
 
 ===============================  ============================================

@@ -10,11 +10,12 @@ interface, loaded with ``ctypes``:
 - ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16,
   seeded or not;
 
-on the headers ``gemm_ring.cuh`` (the staged f32 products' pipelined
-kernel), ``gemm.cuh`` (the fused kernels' f32 tile), ``gemm_bf16.cuh``
-(the bf16 tensor-core tile, on ``wgmma``), ``gemm_bf16_mma.cuh`` (the
-old ``mma.sync`` tile, kept as a witness no entry point launches) and
-``rand.cuh`` (the Ω generator):
+on the headers ``gemm_ring.cuh`` (the f32 tile and its pipelined ring:
+the staged f32 products and both phases of the fused f32 kernels, phase 2
+of the fused bf16 ones), ``gemm_bf16.cuh`` (the bf16 tensor-core tile, on
+``wgmma``), ``gemm_bf16_mma.cuh`` (the old ``mma.sync`` tile, kept as a
+witness no entry point launches), ``mode.cuh`` (the tiles' output modes)
+and ``rand.cuh`` (the Ω generator):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -47,8 +48,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "gemm_bf16": CSRC / "gemm_bf16.cu",
              "recompute_f32": CSRC / "recompute_f32.cu"}
 #: The headers every source may include; each goes into every digest.
-HEADERS = (CSRC / "gemm.cuh", CSRC / "gemm_bf16.cuh", CSRC / "gemm_bf16_mma.cuh",
-           CSRC / "gemm_ring.cuh", CSRC / "rand.cuh")
+HEADERS = (CSRC / "gemm_bf16.cuh", CSRC / "gemm_bf16_mma.cuh", CSRC / "gemm_ring.cuh",
+           CSRC / "mode.cuh", CSRC / "rand.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -88,25 +89,31 @@ SIGNATURES = {
         "gemm_bf16_blocks_per_sm": [_int, _ptr],
     },
     "recompute_f32": {
-        # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, stream
+        # x, q, p, a2, y, n, kt, d, m2, lda2, accumulate, vec of phase 1
+        # (plan.copies of x and q), vec of phase 2 (plan.copies of a2 and P),
+        # stream
         "recompute_f32": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
-                          _ptr],
-        # the same arguments, on bf16 x and q (and a2 of the power form), with
-        # the copy widths of x and q before the stream
-        "projgram_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
                           _int, _int, _ptr],
+        # the same arguments, on bf16 x and q (and a2 of the power form), with
+        # the copy widths of x and q in bytes instead of phase 1's vec
+        "projgram_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64, _int,
+                          _int, _int, _int, _ptr],
         "power_recompute_bf16": [_ptr, _ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
-                                 _int, _int, _int, _ptr],
+                                 _int, _int, _int, _int, _ptr],
         # x, seed words, p, slab scratch, slab rows, a2, y, n, kt, d, m2, lda2,
-        # accumulate, tile and vec of the slabs before the last, stream
+        # accumulate, tile of the slabs before the last (plan.f32_tile), vec of
+        # every slab's NN product (the last one's inside the fused launch),
+        # vec of phase 2, stream
         "recompute_seeded_f32": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
-                                 _i64, _i64, _i64, _int, _int, _int, _ptr],
+                                 _i64, _i64, _i64, _int, _int, _int, _int, _ptr],
         # the same arguments, on bf16 x and slab (and a2 of the power form),
         # with the copy widths of x and the slab instead of tile and vec
         "projgram_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64, _i64,
-                                 _i64, _i64, _i64, _int, _int, _int, _ptr],
+                                 _i64, _i64, _i64, _int, _int, _int, _int, _ptr],
         "power_recompute_seeded_bf16": [_ptr, _u32, _u32, _ptr, _ptr, _i64, _ptr, _ptr, _i64,
-                                        _i64, _i64, _i64, _i64, _int, _int, _int, _ptr],
+                                        _i64, _i64, _i64, _i64, _int, _int, _int, _int, _ptr],
+        # int* out
+        "recompute_f32_blocks_per_sm": [_ptr],
         # power, int* out
         "recompute_bf16_blocks_per_sm": [_int, _ptr],
     },
@@ -197,9 +204,17 @@ def blocks_per_sm(tn: bool, tile: int) -> int:
     return out.value
 
 
-def _occupancy(fn: str, arg: int) -> int:
+def fused_f32_blocks_per_sm() -> int:
+    """The blocks of the fused f32 kernels (``plan.FUSED_F32_TILE``) that the
+    card keeps resident on one SM at the ring's pinned shared memory (the
+    fewest of the four mode instances), by the occupancy API: the
+    cooperative grid's blocks per SM."""
+    return _occupancy("recompute_f32_blocks_per_sm")
+
+
+def _occupancy(fn: str, *args: int) -> int:
     out = ctypes.c_int(0)
-    rc = getattr(build()[_LIB_OF[fn]], fn)(arg, ctypes.byref(out))
+    rc = getattr(build()[_LIB_OF[fn]], fn)(*args, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"occupancy query {fn} failed with CUDA error {rc}")
     return out.value

@@ -56,10 +56,10 @@
 #include "gemm_ring.cuh"
 #include "rand.cuh"
 
-using gemm_f32::ACCUMULATE;
-using gemm_f32::bf16_bits;
-using gemm_f32::CONTINUE;
-using gemm_f32::OVERWRITE;
+using gemm_mode::ACCUMULATE;
+using gemm_mode::bf16_bits;
+using gemm_mode::CONTINUE;
+using gemm_mode::OVERWRITE;
 
 extern "C" {
 

@@ -12,10 +12,9 @@
 //           powerpass_sweep(bf16 P), matmul_tn, gram_sweep (A = P);
 //   tile 3  Y (+)= Aᵀ · P with A bf16 and P f32, on the CUDA cores, A
 //           widened to f32 exactly (so this is the reference's promotion of
-//           the mixed product): powerpass_sweep(f32 P) on gemm_ring.cuh's TN
-//           kernel (A staged as bf16, widened as it is read) and phase 2 of
-//           the fused power recompute on gemm.cuh's tile (widened as it is
-//           staged); the same f32 chains either way.
+//           the mixed product): gemm_ring.cuh's TN tile with A staged as
+//           bf16 and widened as it is read, in powerpass_sweep(f32 P) and in
+//           phase 2 of the fused power recompute (recompute_f32.cu).
 //
 // Tiles 1 and 2 are one function, on Hopper's warpgroup tensor-core path
 // (wgmma, sm_90a only).  The old mma.sync tile stays compiled as a witness
@@ -52,12 +51,13 @@
 // therefore overlaps the adds with the asynchronous products:
 //
 //   * Two consumer warpgroups per 256-thread block, each 64 rows × 128
-//     columns of the 128 × 128 output tile (plan.TILE; the fused kernels mix
-//     this tile with gemm.cuh's of the same shape).  A step is two halves,
-//     columns 0-63 and 64-127, each one m64n64k16 into a 32-float scratch
-//     fragment (s0, s1): a warpgroup issues half u, adds half u − 1 (already
-//     finished) while u runs, then waits for u (wait_group 0).  ptxas keeps
-//     a product in flight only so: a fragment that the adds read must not
+//     columns of the 128 × 128 output tile (plan.TILE; phase 2 of the fused
+//     bf16 kernels runs gemm_ring.cuh's Tile0 on the same block).  A step
+//     is two halves, columns 0-63 and 64-127, each one m64n64k16 into a
+//     32-float scratch fragment (s0, s1): a warpgroup issues half u, adds
+//     half u − 1 (already finished) while u runs, then waits for u
+//     (wait_group 0).  ptxas keeps a product in flight only so: a
+//     fragment that the adds read must not
 //     be written by another product before the next wait to 0 (it waits
 //     after every issue otherwise, C7514), and no branch may stand between
 //     an issue and its wait, so the loop runs whole stages and a short last
@@ -99,14 +99,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm.cuh"
+#include "mode.cuh"
 
 namespace gemm_bf16 {
 
-using gemm_f32::ACCUMULATE;
-using gemm_f32::bf16_bits;
-using gemm_f32::CONTINUE;
-using gemm_f32::OVERWRITE;
+using gemm_mode::ACCUMULATE;
+using gemm_mode::bf16_bits;
+using gemm_mode::CONTINUE;
+using gemm_mode::OVERWRITE;
 
 constexpr int BM = 128;       // output rows per tile: two warpgroups of 64
 constexpr int BN = 128;       // output columns per tile
@@ -120,7 +120,6 @@ constexpr int ALIGN = 1024;   // a swizzle atom: 8 rows of 128 bytes
 constexpr int OPERAND_BYTES = BM * BK * 2;  // one operand's stage: 128 × 64 or 64 × 128
 constexpr int STAGE_BYTES = 2 * OPERAND_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + ALIGN;  // the ring, and room to align it
-static_assert(BM == gemm_f32::BM && BN == gemm_f32::BN, "the fused kernels mix both tiles");
 static_assert(BM == BN && BK * 2 == 128, "a K-major stage row is one 128-byte swizzle row");
 static_assert(BK % STEP == 0, "a stage is whole steps");
 

@@ -17,14 +17,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm.cuh"
+#include "mode.cuh"
 
 namespace gemm_bf16_mma {
 
-using gemm_f32::ACCUMULATE;
-using gemm_f32::bf16_bits;
-using gemm_f32::CONTINUE;
-using gemm_f32::OVERWRITE;
+using gemm_mode::ACCUMULATE;
+using gemm_mode::bf16_bits;
+using gemm_mode::CONTINUE;
+using gemm_mode::OVERWRITE;
 
 constexpr int BM = 128;      // output rows per tile
 constexpr int BN = 128;      // output columns per tile

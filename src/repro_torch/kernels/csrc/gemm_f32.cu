@@ -21,8 +21,8 @@
 // kernels are one contraction (matmul.py says so of the Gram itself).
 //
 // Each launch is one output tile per block through a 4-stage cp.async ring
-// (gemm_ring.cuh: the design, what bounds it, and its FMA chains, which are
-// the fused kernels' gemm_tile's bit for bit).  Every entry takes `tile`,
+// (gemm_ring.cuh: the design, what bounds it, and its FMA chains; the fused
+// recompute kernels run the same tile in both phases).  Every entry takes `tile`,
 // the index of the tile shape plan.f32_tile picked for the output's waves,
 // and `vec`, which operands plan.copies found 16-byte aligned (bit 0: the
 // A operand, bit 1: B); the launch refuses a tile it does not have and a
@@ -55,9 +55,9 @@
 #include "gemm_ring.cuh"
 #include "rand.cuh"
 
-using gemm_f32::ACCUMULATE;
-using gemm_f32::CONTINUE;
-using gemm_f32::OVERWRITE;
+using gemm_mode::ACCUMULATE;
+using gemm_mode::CONTINUE;
+using gemm_mode::OVERWRITE;
 
 namespace {
 

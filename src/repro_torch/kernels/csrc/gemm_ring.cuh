@@ -1,17 +1,27 @@
-// The staged f32 products of the port on Hopper (sm_90a): one output tile per
-// block, its operands staged through an asynchronous ring of shared-memory
-// stages.  Two kernel forms, one template:
+// The f32 output tile of the port on Hopper (sm_90a): its operands staged
+// through an asynchronous ring of shared-memory stages.  One device function,
+// ring_tile, in two forms:
 //
 //   NN  Y (M×N) = X (M×K) · B (K×N)          gemm_nn_f32: proj_stage, matmul_nn,
-//                                             the seeded stage's slabs, and every
+//                                             the seeded stage's slabs, every
 //                                             slab but the last of a seeded
-//                                             recompute (recompute_f32.cu)
+//                                             recompute; phase 1 of the fused
+//                                             f32 recompute (recompute_f32.cu)
 //   TN  Y (M×N) (+)= Aᵀ · B, A (K×M)          gemm_tn_f32: powerpass_sweep,
-//                                             gram_sweep, matmul_tn; and, with A
-//                                             bf16 (TA = bf16_bits), "tile 3",
-//                                             powerpass_sweep[bf16,f32]
+//                                             gram_sweep, matmul_tn; phase 2 of
+//                                             every fused recompute, f32 or
+//                                             bf16; with A bf16 (TA =
+//                                             bf16_bits), "tile 3":
+//                                             powerpass_sweep[bf16,f32] and
+//                                             phase 2 of the fused bf16 power
+//                                             recompute
 //
-// What bounds them on this card: f32 operations.  At the main path's shapes
+// ring_kernel runs one tile per block: the staged products.  The fused
+// recompute kernels call ring_tile from persistent loops over their tiles;
+// each call ends with no copy in flight and a barrier, so the block may start
+// the next tile's prologue on the same slots at once.
+//
+// What bounds it on this card: f32 operations.  At the main path's shapes
 // a product does hundreds of FLOPs per byte of operands, far above the card's
 // f32 balance point (67 TFLOP/s ÷ 3.35 TB/s ≈ 20), and the reference is f32
 // end to end, so the tensor cores (TF32 at best) are out.  The CUDA cores
@@ -22,7 +32,7 @@
 //   * The ring.  STAGES = 4 stages of BK = 32 contraction steps in dynamic
 //     shared memory, filled with cp.async; one __syncthreads() per stage, so
 //     the copies of stages s + 1 … s + 3 are in flight while stage s
-//     computes.  A stage computes as two unrolled runs of 16 steps (the
+//     computes.  A stage computes as two unrolled runs of RUN = 16 steps (the
 //     code of one run, looped), and a short last stage runs only the runs
 //     it needs.
 //   * Copies without per-element work.  16-byte cp.async.cg where the base
@@ -43,11 +53,25 @@
 //         store, take 8× the copies or registers the 8 × 8 tile lacks.)
 //     A bf16 A (tile 3) is staged as bf16, halving its bytes, and widened
 //     (exactly: `bits << 16`) as its fragments are read.
+//   * Coherent reads (COHERENT, phase 2 of the fused kernels).  Phase 2 reads
+//     P, which other blocks wrote in phase 1 of the same launch (projgram's
+//     A is P too).  The grid barrier makes their stores visible in L2, not in
+//     this SM's L1: a line of P that the SM cached before the barrier stays
+//     stale there.  A seeded call's last slab does cache such lines: phase 1
+//     in CONTINUE mode reads its own P tile with plain loads, and at k̃ = 970
+//     a P row (3,880 bytes) is only 8-byte aligned, so a 128-byte line of it
+//     holds a neighbouring tile's elements.  So a COHERENT tile reads
+//     nothing through L1 by construction: its 16-byte copies are
+//     cp.async.cg (L2 only), and its element copies, whose one cp.async form
+//     (.ca) may hit L1, are ld.global.cg into registers — all of a thread's
+//     loads of a stage in flight together, then their st.shared.  A bitwise
+//     test cannot show a race absent; this is why none can occur.
 //   * Tiles sized to the card's waves.  Two shapes, Tile0 = 128 × 128 with
 //     256 threads and one block per SM, Tile1 = 128 × 64 with 128 threads
 //     and two per SM: eight warps per SM either way, 8 × 8 outputs per
-//     thread.  plan.f32_tile picks one per launch (⌈tiles ÷ resident blocks⌉
-//     waves × one tile's work) and passes its index; nothing is decided here.
+//     thread.  plan.f32_tile picks one per staged launch (⌈tiles ÷ resident
+//     blocks⌉ waves × one tile's work) and passes its index; nothing is
+//     decided here.  The fused f32 kernel runs Tile0 (plan.FUSED_F32_TILE).
 //     At k̃ = 2060, Tile1's 33 column tiles fill 8192 rows in exactly 8 waves
 //     of 264 blocks.
 //     The launch pins the blocks per SM: it asks for enough shared memory
@@ -61,40 +85,42 @@
 //     as busy as its FFMA pipes), but it spilled at 255 registers and ran
 //     the f32 products 7-14 % slower (PERF.md).
 //
-// The arithmetic, which every bitwise contract of the port rests on, is
-// gemm_tile's (gemm.cuh): each output element is one chain
-// `acc = fmaf(a, b, acc)` in ascending k, from 0.0f (CONTINUE: from the
-// element's value in Y), the masked terms past K zero on both operands and
-// padded to gemm_tile's 16-step boundary; ACCUMULATE adds the finished chain
-// into Y once, in the epilogue.  No split-K, no atomics, no TF32.  The chain
-// does not depend on the tile's shape or the ring's depth, so this kernel is
-// bitwise gemm_tile: the fused recompute kernels (recompute_f32.cu) still run
-// gemm_tile, and chip_smoke.py holds them bitwise against these kernels
-// (recompute ≡ staged at the p = 910 shapes, 333 × 9001 → 67, the
-// multi-bucket shapes, tile 3 in the bf16 power form, and one fused power
-// call at k̃ = 2060).
+// The arithmetic, which every bitwise contract of the port rests on: each
+// output element is one chain `acc = fmaf(a, b, acc)` in ascending k, from
+// 0.0f (CONTINUE: from the element's value in Y); ACCUMULATE adds the
+// finished chain into Y once, in the epilogue.  No split-K, no atomics, no
+// TF32.  A masked K tail runs to the end of its run of 16 steps, its terms
+// past K zero on both operands: each adds 0·0 = +0 to the chain, which is
+// exact except that a chain standing at −0 becomes +0.  So the number of
+// padded terms is part of the bits, and RUN stays 16, the depth every f32
+// chain of the port has been padded to since its first tile: the recorded
+// digests of the fits rest on it.  The chain does not depend on the tile's
+// shape, the ring's depth or the order of the tiles, so the staged kernels
+// and the fused ones (recompute ≡ staged, seeded ≡ materialized: chip_smoke.py
+// holds them bitwise) give the same bits.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm.cuh"
+#include "mode.cuh"
 
 namespace gemm_ring {
 
-using gemm_f32::ACCUMULATE;
-using gemm_f32::bf16_bits;
-using gemm_f32::CONTINUE;
-using gemm_f32::OVERWRITE;
+using gemm_mode::ACCUMULATE;
+using gemm_mode::bf16_bits;
+using gemm_mode::CONTINUE;
+using gemm_mode::OVERWRITE;
 
 constexpr int BK = 32;     // contraction steps per stage
 constexpr int STAGES = 4;  // stages in the ring
 constexpr int QUADS = BK / 4;        // k-quads per NN A row
-constexpr int RUN = gemm_f32::BK;    // steps per unrolled run of the compute loop
-// A masked tail pads to gemm_tile's 16-step boundary: the last stage runs only
-// the runs of 16 it needs.
-static_assert(BK % RUN == 0, "a stage is whole runs of gemm_tile's staging depth");
+// Steps per unrolled run of the compute loop, and the boundary a masked K tail
+// pads to: 16, or the padded terms, and with them the bits, would change (see
+// above).  The last stage runs only the runs it needs.
+constexpr int RUN = 16;
+static_assert(BK % RUN == 0, "a stage is whole runs");
 
 // An output tile: BM × BN per block of (BM / 8)·(BN / 8) threads, each 8 × 8
 // outputs as two 4-row halves BM / 2 apart by two 4-column halves BN / 2
@@ -130,6 +156,19 @@ __device__ __forceinline__ void copy16(uint32_t dst, const void* src, uint32_t b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes)
                : "memory");
+}
+
+// One element from global memory through L2 only (ld.global.cg), never from
+// this SM's L1.
+__device__ __forceinline__ float load_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned short load_cg(const unsigned short* p) {
+  unsigned short v;
+  asm volatile("ld.global.cg.u16 %0, [%1];\n" : "=h"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // 4 bytes to shared memory, from global memory when `bytes` is 4, else zero.
@@ -178,22 +217,46 @@ __device__ __forceinline__ void copy_rows16(uint32_t dst, const TE* src, int ld,
 
 // The same stage one element per copy: 4-byte cp.async for f32; a bf16
 // element (2 bytes, which cp.async cannot copy) through a register.
-template <int COLS, int THREADS, typename TE>
+// COHERENT: every element through a register by load_cg, the thread's loads
+// all issued before its first store.
+template <int COLS, int THREADS, bool COHERENT, typename TE>
 __device__ __forceinline__ void copy_rows_elems(uint32_t dst, const TE* src, int ld, int cleft,
                                                 int kleft, const TE* base) {
   constexpr int ELEMS = BK * COLS;
+  constexpr int PER = (ELEMS + THREADS - 1) / THREADS;  // elements per thread
+  if constexpr (COHERENT) {
+    TE v[PER];
 #pragma unroll
-  for (int it = 0; it < (ELEMS + THREADS - 1) / THREADS; ++it) {
-    const int e = threadIdx.x + it * THREADS;
-    if (ELEMS % THREADS != 0 && e >= ELEMS) break;
-    const int kk = e / COLS, c = e % COLS;
-    const bool in = kk < kleft && c < cleft;
-    const uint32_t to = dst + (uint32_t)(e * (int)sizeof(TE));
-    if constexpr (sizeof(TE) == 4) {
-      copy4(to, in ? src + (kk * ld + c) : base, in ? 4u : 0u);
-    } else {
-      const unsigned short v = in ? src[kk * ld + c] : (unsigned short)0;
-      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(v) : "memory");
+    for (int it = 0; it < PER; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const int kk = e / COLS, c = e % COLS;
+      const bool in = (ELEMS % THREADS == 0 || e < ELEMS) && kk < kleft && c < cleft;
+      v[it] = in ? load_cg(src + (kk * ld + c)) : (TE)0;
+    }
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      if (ELEMS % THREADS != 0 && e >= ELEMS) break;
+      const uint32_t to = dst + (uint32_t)(e * (int)sizeof(TE));
+      if constexpr (sizeof(TE) == 4)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(to), "f"(v[it]) : "memory");
+      else
+        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(v[it]) : "memory");
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      if (ELEMS % THREADS != 0 && e >= ELEMS) break;
+      const int kk = e / COLS, c = e % COLS;
+      const bool in = kk < kleft && c < cleft;
+      const uint32_t to = dst + (uint32_t)(e * (int)sizeof(TE));
+      if constexpr (sizeof(TE) == 4) {
+        copy4(to, in ? src + (kk * ld + c) : base, in ? 4u : 0u);
+      } else {
+        const unsigned short v = in ? src[kk * ld + c] : (unsigned short)0;
+        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(v) : "memory");
+      }
     }
   }
 }
@@ -317,22 +380,26 @@ __device__ __forceinline__ void compute(const TA* As, const float* Bs, int kb, i
   }
 }
 
-// The tile at (blockIdx.y·BM, blockIdx.x·BN) of
+// The tile at (m0, n0) of
 //   NN (A_KMAJOR = false): Y = A·B, A (M×K) f32 with row stride lda;
 //   TN (A_KMAJOR = true):  Y (+)= Aᵀ·B, A (K×M) f32 or bf16 with row stride lda;
 // B (K×N) and Y (M×N) with row stride N.  `vec` bit 0: A's stages are copied
 // 16 bytes at a time, bit 1: B's (the launcher has checked that they may be).
-template <bool A_KMAJOR, int MODE, typename TA, class T>
-__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-ring_kernel(const TA* __restrict__ A, const float* __restrict__ B, float* __restrict__ Y,
-            int64_t M, int64_t N, int64_t K, int64_t lda, int vec) {
+// COHERENT: A and B are read through L2 only (see the header).  `ring_smem`:
+// the ring, Ring<T, TA>::BYTES of 16-byte aligned shared memory.  Every
+// thread of the block calls it with the same tile; it returns with none of
+// the block's copies in flight, after a __syncthreads().
+template <bool A_KMAJOR, int MODE, typename TA, class T, bool COHERENT = false>
+__device__ __forceinline__ void ring_tile(const TA* __restrict__ A, const float* __restrict__ B,
+                                          float* __restrict__ Y, int64_t M, int64_t N,
+                                          int64_t K, int64_t lda, int vec, int64_t m0,
+                                          int64_t n0, unsigned char* ring_smem) {
   static_assert(A_KMAJOR || sizeof(TA) == 4, "the NN form takes an f32 A");
+  static_assert(A_KMAJOR || !COHERENT, "the NN form's element copies of A go through L1");
   static_assert(MODE == OVERWRITE || MODE == ACCUMULATE || MODE == CONTINUE, "a tile mode");
   using R = Ring<T, TA>;
-  extern __shared__ __align__(16) unsigned char ring_smem[];
 
   const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
-  const int64_t m0 = (int64_t)blockIdx.y * T::BM, n0 = (int64_t)blockIdx.x * T::BN;
   const int mleft = (int)(M - m0 < T::BM ? M - m0 : T::BM);
   const int nleft = (int)(N - n0 < T::BN ? N - n0 : T::BN);
   const bool interior = mleft == T::BM && nleft == T::BN;
@@ -350,7 +417,7 @@ ring_kernel(const TA* __restrict__ A, const float* __restrict__ B, float* __rest
     const TA* a = A_KMAJOR ? A + k0 * lda + m0 : A + m0 * lda + k0;
     if constexpr (A_KMAJOR) {
       if (!(vec & 1))
-        copy_rows_elems<T::BM, T::THREADS>(sa, a, ld, mleft, kleft, A);
+        copy_rows_elems<T::BM, T::THREADS, COHERENT>(sa, a, ld, mleft, kleft, A);
       else if (full)
         copy_rows16<T::BM, T::THREADS, false>(sa, a, ld, mleft, kleft, A);
       else
@@ -365,7 +432,7 @@ ring_kernel(const TA* __restrict__ A, const float* __restrict__ B, float* __rest
     }
     const float* b = B + k0 * N + n0;
     if (!(vec & 2))
-      copy_rows_elems<T::BN, T::THREADS>(sb, b, ldb, nleft, kleft, B);
+      copy_rows_elems<T::BN, T::THREADS, COHERENT>(sb, b, ldb, nleft, kleft, B);
     else if (full)
       copy_rows16<T::BN, T::THREADS, false>(sb, b, ldb, nleft, kleft, B);
     else
@@ -432,13 +499,24 @@ ring_kernel(const TA* __restrict__ A, const float* __restrict__ B, float* __rest
       if (c < nleft) yrow[c] = MODE == ACCUMULATE ? yrow[c] + acc[i][j] : acc[i][j];
     }
   }
+  __syncthreads();  // every thread is done with the ring
 }
 
-// The dynamic shared memory a launch of the kernel asks for — its ring, or
-// more, so that at most T::MIN_BLOCKS blocks fit an SM — with the kernel's
-// attributes set to allow it.
+// One tile per block: grid (⌈N / BN⌉, ⌈M / BM⌉), the column tiles fastest,
+// so the blocks that share a row panel of A run together.
 template <bool A_KMAJOR, int MODE, typename TA, class T>
-cudaError_t prepare(int* smem) {
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+ring_kernel(const TA* __restrict__ A, const float* __restrict__ B, float* __restrict__ Y,
+            int64_t M, int64_t N, int64_t K, int64_t lda, int vec) {
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  ring_tile<A_KMAJOR, MODE, TA, T>(A, B, Y, M, N, K, lda, vec, (int64_t)blockIdx.y * T::BM,
+                                   (int64_t)blockIdx.x * T::BN, ring_smem);
+}
+
+// The dynamic shared memory a launch on tile T asks for: its ring (A of
+// type TA), or more, so that at most T::MIN_BLOCKS blocks fit an SM.
+template <class T, typename TA>
+cudaError_t pinned_smem(int* smem) {
   int dev = 0, per_sm = 0, reserved = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -450,13 +528,26 @@ cudaError_t prepare(int* smem) {
   if (err != cudaSuccess) return err;
   const int pin = per_sm / (T::MIN_BLOCKS + 1) - reserved + 16;
   *smem = pin > Ring<T, TA>::BYTES ? pin : Ring<T, TA>::BYTES;
-  if (*smem > optin) return cudaErrorInvalidConfiguration;
-  const auto kern = ring_kernel<A_KMAJOR, MODE, TA, T>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return *smem > optin ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// `kern`'s attributes set to allow `smem` bytes of dynamic shared memory, all
+// of the SM's carveout for shared memory.
+inline cudaError_t allow_smem(const void* kern, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   return err;
+}
+
+// The dynamic shared memory a launch of the kernel asks for, with the
+// kernel's attributes set to allow it.
+template <bool A_KMAJOR, int MODE, typename TA, class T>
+cudaError_t prepare(int* smem) {
+  const cudaError_t err = pinned_smem<T, TA>(smem);
+  if (err != cudaSuccess) return err;
+  return allow_smem((const void*)ring_kernel<A_KMAJOR, MODE, TA, T>, *smem);
 }
 
 // 16-byte copies of a matrix need a 16-byte aligned base and row stride.
@@ -464,18 +555,30 @@ inline bool rows16(const void* p, long long ld, int size) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * size) % 16 == 0;
 }
 
-template <bool A_KMAJOR, int MODE, typename TA, class T>
-int launch_tile(const void* a, const void* b, void* y, long long M, long long N, long long K,
-                long long lda, int vec, cudaStream_t stream) {
-  const long long tiles_m = (M + T::BM - 1) / T::BM, tiles_n = (N + T::BN - 1) / T::BN;
-  if (M <= 0 || N <= 0 || K < 0 || K > (1LL << 30) || tiles_m > 65535 || tiles_n > (1LL << 30))
+// The checks every tile of a launch on T needs: sizes, 32-bit offsets inside
+// a stage (rows × stride of A's stage, BK × N of B's), and 16-byte copies
+// (`vec`) only where the operands allow them.  A is (M × K) or, A_KMAJOR,
+// (K × M) with row stride lda; B is (K × N).
+template <bool A_KMAJOR, typename TA, class T>
+int check_operands(const void* a, const void* b, long long M, long long N, long long K,
+                   long long lda, int vec) {
+  if (M <= 0 || N <= 0 || K < 0 || K > (1LL << 30) || (N + T::BN - 1) / T::BN > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  // offsets inside a stage are 32-bit: rows × stride of A's stage, BK × N of B's
   if ((A_KMAJOR ? (long long)BK : (long long)T::BM) * lda >= (1LL << 31) ||
       (long long)BK * N >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (((vec & 1) && !rows16(a, lda, (int)sizeof(TA))) || ((vec & 2) && !rows16(b, N, 4)))
     return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+template <bool A_KMAJOR, int MODE, typename TA, class T>
+int launch_tile(const void* a, const void* b, void* y, long long M, long long N, long long K,
+                long long lda, int vec, cudaStream_t stream) {
+  const int rc = check_operands<A_KMAJOR, TA, T>(a, b, M, N, K, lda, vec);
+  if (rc != 0) return rc;
+  const long long tiles_m = (M + T::BM - 1) / T::BM, tiles_n = (N + T::BN - 1) / T::BN;
+  if (tiles_m > 65535) return (int)cudaErrorInvalidValue;
   int smem = 0;
   const cudaError_t err = prepare<A_KMAJOR, MODE, TA, T>(&smem);
   if (err != cudaSuccess) return (int)err;

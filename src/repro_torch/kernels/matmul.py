@@ -91,14 +91,22 @@ FORMS = {
     "omega_fill": {(f32,): "omega_fill_f32", (bf16,): "omega_fill_bf16"},
 }
 _SHORT = {f32: "f32", bf16: "bf16"}
-#: The C functions that launch the staged f32 kernel (``csrc/gemm_ring.cuh``):
-#: each takes the tile :func:`~.plan.f32_tile` picks for its output and the
-#: copy widths :func:`~.plan.copies` allows its operands.
+#: The C functions that run the f32 ring tile (``csrc/gemm_ring.cuh``) for
+#: their first product (the fused ones: phase 1): each takes the tile
+#: :func:`~.plan.f32_tile` picks for that product's output and the copy widths
+#: :func:`~.plan.copies` allows its operands — the fused ``recompute_f32``
+#: only the copy widths, as it always runs :data:`~.plan.FUSED_F32_TILE`.
 RING = frozenset({"gemm_nn_f32", "gemm_tn_f32", "gemm_tn_bf16_f32", "proj_stage_seeded_f32",
-                  "recompute_seeded_f32"})
+                  "recompute_f32", "recompute_seeded_f32"})
 #: The C functions that run the bf16 tensor-core tile (``csrc/gemm_bf16.cuh``):
 #: each takes the copy width of its two bf16 operands (:func:`~.plan.copy_bytes`).
 WGMMA = frozenset({"gemm_nn_bf16", "gemm_tn_bf16", "proj_stage_seeded_bf16", "projgram_bf16",
+                   "power_recompute_bf16", "projgram_seeded_bf16",
+                   "power_recompute_seeded_bf16"})
+#: The fused recompute kernels: phase 2 (Y (+)= A2ᵀ·P) runs the ring tile,
+#: and each takes the copy widths :func:`~.plan.copies` allows A2 and P
+#: after its phase 1 arguments.
+FUSED = frozenset({"recompute_f32", "recompute_seeded_f32", "projgram_bf16",
                    "power_recompute_bf16", "projgram_seeded_bf16",
                    "power_recompute_seeded_bf16"})
 
@@ -156,12 +164,14 @@ def _grid_ok(entry: str, M: int, N: int) -> None:
 
 
 def _ring(fn: str, M: int, N: int, a: tuple[int, int, int], b: tuple[int, int, int]) -> tuple:
-    """The staged f32 kernel's two extra arguments for C function ``fn`` on
-    an M × N output — the tile and the copy widths of A and B, each
-    ``(address, row stride, itemsize)`` — or none for another kernel."""
+    """The ring tile's extra arguments for C function ``fn`` on an M × N
+    output — the tile (but for ``recompute_f32``) and the copy widths of A
+    and B, each ``(address, row stride, itemsize)`` — or none for another
+    kernel."""
     if fn not in RING:
         return ()
-    return plan.f32_tile(M, N), plan.copies(a, b)
+    vec = plan.copies(a, b)
+    return (vec,) if fn == "recompute_f32" else (plan.f32_tile(M, N), vec)
 
 
 def _widths(fn: str, a: tuple[int, int, int], b: tuple[int, int, int]) -> tuple:
@@ -171,6 +181,15 @@ def _widths(fn: str, a: tuple[int, int, int], b: tuple[int, int, int]) -> tuple:
     if fn not in WGMMA:
         return ()
     return plan.copy_bytes(*a), plan.copy_bytes(*b)
+
+
+def _phase2(fn: str, a2: tuple[int, int, int], p: tuple[int, int, int]) -> tuple:
+    """A fused kernel's last extra argument for C function ``fn`` — the copy
+    widths of phase 2's A2 and P, each ``(address, row stride, itemsize)``
+    — or none for another kernel."""
+    if fn not in FUSED:
+        return ()
+    return (plan.copies(a2, p),)
 
 
 def _operand(t: torch.Tensor, row_stride: int) -> tuple[int, int, int]:
@@ -237,16 +256,19 @@ def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.T
     n, d = x.shape
     m2, lda2 = r1 - r0, a2.shape[1]
     a2_ptr, y_ptr = a2.data_ptr() + a2.element_size() * r0, y.data_ptr() + 4 * r0 * kt
+    phase2 = _phase2(f.fn, (a2_ptr, lda2, a2.element_size()), _operand(p, kt))
     if isinstance(q, torch.Tensor):
+        a, b = _operand(x, d), _operand(q, kt)
         build.launch(f.label, f.fn, x.data_ptr(), q.data_ptr(), p.data_ptr(), a2_ptr, y_ptr,
-                     n, kt, d, m2, lda2, int(accumulate),
-                     *_widths(f.fn, _operand(x, d), _operand(q, kt)), _stream(x))
+                     n, kt, d, m2, lda2, int(accumulate), *_ring(f.fn, n, kt, a, b),
+                     *_widths(f.fn, a, b), *phase2, _stream(x))
         return
     slab = torch.empty((min(d, SEEDED_SLAB), kt), dtype=x.dtype, device=x.device)
     a, b = _operand(x, d), _operand(slab, kt)
     build.launch(f.label, f.fn, x.data_ptr(), q[0] & 0xFFFFFFFF, q[1] & 0xFFFFFFFF,
                  p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
-                 int(accumulate), *_ring(f.fn, n, kt, a, b), *_widths(f.fn, a, b), _stream(x))
+                 int(accumulate), *_ring(f.fn, n, kt, a, b), *_widths(f.fn, a, b), *phase2,
+                 _stream(x))
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -11,15 +11,19 @@ order; each takes the operands' ``dtype`` (a seeded plan's Ω slabs are of
 the same dtype), as the reference's plans do.
 
 Plans come from the port's own tiles, never from the TPU's
-``VMEM_BLOCK_ELEMS``: the staged f32 products (``gemm_nn_f32``,
-``gemm_tn_f32``, ``gemm_tn_bf16_f32``) from the tile :func:`f32_tile`
-picks out of :data:`F32_TILES` (``csrc/gemm_ring.cuh``); the fused
-recompute kernels from ``csrc/gemm.cuh``'s 128 × 128 tile per 256-thread
-block (16,640 bytes of staging, :data:`TILE`, :data:`SMEM_BYTES`,
-:data:`RESIDENT_BLOCKS`); the bf16 tensor-core products, staged or fused,
-from ``csrc/gemm_bf16.cuh``'s wgmma tile (the same output tile, two
+``VMEM_BLOCK_ELEMS``.  Every f32 launch runs a tile of :data:`F32_TILES`
+with its ring in :func:`ring_smem` of dynamic shared memory
+(``csrc/gemm_ring.cuh``): a staged product (``gemm_nn_f32``,
+``gemm_tn_f32``, ``gemm_tn_bf16_f32``) the tile :func:`f32_tile` picks
+for its output, the fused f32 recompute kernel :data:`FUSED_F32_TILE` in
+both phases, on a cooperative grid of that tile's blocks per SM on every
+SM, or fewer blocks when it has fewer tiles.  The bf16 tensor-core
+products, staged or fused, run ``csrc/gemm_bf16.cuh``'s wgmma tile
+(128 × 128, :data:`TILE`, two
 warpgroups, one block per SM, a ring in :data:`SMEM_BYTES_BF16` of
-dynamic shared memory: :data:`BF16_THREADS`, :data:`BF16_BLOCKS_PER_SM`).
+dynamic shared memory: :data:`BF16_THREADS`, :data:`BF16_BLOCKS_PER_SM`),
+whose block also runs the fused bf16 kernels' f32 phase 2 on the ring's
+128 × 128 tile.  :data:`TILE` also sets the buckets' column padding.
 Only the buckets of the recompute schedule share a number with the
 reference, and for a reason of their own (:data:`ONE_BUCKET_ELEMS`).
 """
@@ -31,9 +35,7 @@ import dataclasses
 import torch
 
 F32, BF16 = torch.float32, torch.bfloat16
-TILE = 128  # gemm.cuh and gemm_bf16.cuh: output rows and columns per block (BM = BN)
-THREADS = 256
-SMEM_BYTES = 4 * 16 * (TILE + 4) + 4 * 16 * TILE  # gemm.cuh Tiles: As + Bs
+TILE = 128  # gemm_bf16.cuh: output rows and columns per block (BM = BN)
 #: The bf16 tensor-core tile (``csrc/gemm_bf16.cuh``): two warpgroups of
 #: 64 × 128 outputs per block, one block per SM (≈ 230 registers a
 #: thread); a ring of BF16_STAGES stages, each BF16_BK contraction steps of
@@ -48,26 +50,29 @@ SMEM_BYTES_BF16 = BF16_STAGES * 2 * (2 * TILE * BF16_BK) + BF16_ALIGN
 #: the schedule rule's f32 units (:func:`weighted_cost`).
 TENSOR_CORE_WEIGHT = 67 / 989
 FILL_BLOCK = (64, 4)  # rand.cuh omega_fill: columns × rows per block
-#: Blocks the cooperative recompute launch keeps resident on an H100 SXM:
-#: 2 per SM (``__launch_bounds__(256, 2)``) × 132 SMs.  The launcher asks
-#: the occupancy API at run time; the plans use this design value.
-RESIDENT_BLOCKS = 2 * 132
-#: The staged f32 products' tile shapes (``csrc/gemm_ring.cuh`` Tile0,
+#: The f32 tile shapes, staged and fused (``csrc/gemm_ring.cuh`` Tile0,
 #: Tile1, in this order): (rows, columns, threads, blocks per SM).  Eight
 #: warps per SM either way, 8 × 8 outputs per thread; the launch pins the
 #: blocks per SM (it asks for enough shared memory that no more fit).
 F32_TILES = ((128, 128, 256, 1), (128, 64, 128, 2))
+#: The tile of the fused f32 recompute kernel, both phases: 128 × 128 at one
+#: block per SM, whatever :func:`f32_tile` would pick.  The 128 × 64 tile's
+#: CONTINUE instances spilled 8 bytes at 255 registers with both phases
+#: inlined into one kernel (CUDA 12.8, sm_90a), and at the shapes the
+#: schedule rule recomputes the two tiles tie (8192 × 970: 3.88 waves either
+#: way) or this one wins, so only this one is compiled.
+FUSED_F32_TILE = 0
 SMS = 132  # H100 SXM
-RING_BK = 32  # contraction steps per stage of the ring (tails still pad to gemm.cuh's 16)
+RING_BK = 32  # contraction steps per stage of the ring (a K tail pads to its runs of 16)
 RING_STAGES = 4
 #: The H100's shared memory per SM and the part of it reserved per block:
 #: what the launch's pin is computed from (the C side asks the card).
 SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 #: Ω rows per slab of the seeded kernels: 34 MB at k̃ = 2060 in f32 (17 MB
 #: in bf16), inside the H100's 50 MB L2.  A multiple of every tile's
-#: staging depth (32 and 16 in f32, the ring's and the fused tile's; 64 in
-#: bf16, whose unit is 16), so slab edges keep each element's chain (the C
-#: side checks).
+#: staging depth (32 in f32, the ring's, whose runs are 16; 64 in bf16,
+#: whose unit is 16), so slab edges keep each element's chain (the C side
+#: checks).
 SEEDED_SLAB = 4096
 
 #: The largest accumulator bucket — rows × k̃p of ΔY (da × k̃p) or of
@@ -129,8 +134,9 @@ def idle_share(M: int, N: int, tile: int) -> float:
 
 def f32_tile(M: int, N: int) -> int:
     """The index in :data:`F32_TILES` of the tile for an M × N output of a
-    staged f32 product: each launch is modelled as ⌈tiles ÷ resident
-    blocks⌉ waves × one tile's time, a tile's time as its outputs × its
+    staged f32 product (and of a seeded call's slabs): each launch is
+    modelled as ⌈tiles ÷ resident blocks⌉ waves × one tile's time, a
+    tile's time as its outputs × its
     blocks per SM (the SM's FFMA rate shared among them), and the cheapest
     wins; a tie goes to the larger tile, which stages fewer bytes per FMA.
     The chains do not depend on the tile, so neither do the bits.
@@ -282,15 +288,20 @@ def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
               kernel: str = "recompute_f32") -> LaunchPlan:
     """One fused launch: P (n×k̃) over k1 contraction columns, then an
     m2-row accumulator bucket.  ``nbytes`` depends on which operands are
-    the entry point's inputs and outputs.  The bf16 kernels
-    (``projgram_bf16``, ``power_recompute_bf16``) run the projection on
-    the tensor cores and the accumulation on the CUDA cores, on the bf16
-    tile's block: one per SM, its ring's dynamic shared memory."""
-    tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
+    the entry point's inputs and outputs.  The f32 kernel runs both phases
+    on :data:`FUSED_F32_TILE`; its cooperative grid is that tile's blocks
+    per SM on every SM, at most one block per tile of the larger phase.
+    The bf16 kernels (``projgram_bf16``, ``power_recompute_bf16``) run the
+    projection on the tensor cores and the accumulation on the CUDA cores,
+    on the bf16 tile's block: one per SM, its ring's dynamic shared
+    memory."""
     proj = 2 * n * k1 * kt
     if kernel == "recompute_f32":
-        return LaunchPlan(kernel, (min(RESIDENT_BLOCKS, tiles),), (THREADS,), SMEM_BYTES,
-                          proj + 2 * n * m2 * kt, nbytes)
+        bm, bn, threads, per_sm = F32_TILES[FUSED_F32_TILE]
+        tiles = max(cdiv(n, bm), cdiv(m2, bm)) * cdiv(kt, bn)
+        return LaunchPlan(kernel, (min(per_sm * SMS, tiles),), (threads,),
+                          ring_smem(FUSED_F32_TILE), proj + 2 * n * m2 * kt, nbytes)
+    tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
     return LaunchPlan(kernel, (min(BF16_BLOCKS_PER_SM * SMS, tiles),), (BF16_THREADS,),
                       SMEM_BYTES_BF16, proj + 2 * n * m2 * kt, nbytes, tc_flops=proj)
 

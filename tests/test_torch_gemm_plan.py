@@ -66,23 +66,44 @@ def test_tile_set_matches_the_kernel_source():
     assert f"constexpr int BK = {plan.RING_BK};" in src
     assert f"constexpr int STAGES = {plan.RING_STAGES};" in src
     assert re.search(r"case (\d+):", src.split("int launch(int tile")[1]) is not None
+    # the fused f32 kernel's one tile is the plan's
+    fused = (CSRC / "recompute_f32.cu").read_text()
+    assert re.findall(r"using FusedTile = Tile(\d);", fused) == [str(plan.FUSED_F32_TILE)]
 
 
 def test_every_compiled_bk_divides_the_seeded_slab():
     """A seeded slab edge falls on a staging step of every tile that
-    contracts a slab: the ring's, the fused f32 tile's and the bf16 wgmma
-    tile's (and of the old bf16 tile, kept as a witness); the bf16 tile's
+    contracts a slab: the f32 ring's (staged and fused) and the bf16 wgmma
+    tile's (and of the old bf16 tile, kept as a witness); the ring's runs
+    are 16 steps, the depth a masked K tail pads to, and the bf16 tile's
     unit — one k16 product from zero, one add — divides its stage."""
     bks = {f.name: int(m) for f in sorted(CSRC.glob("*.cuh"))
            for m in re.findall(r"constexpr int BK = (\d+);", f.read_text())}
-    assert set(bks) == {"gemm.cuh", "gemm_bf16.cuh", "gemm_bf16_mma.cuh", "gemm_ring.cuh"}
+    assert set(bks) == {"gemm_bf16.cuh", "gemm_bf16_mma.cuh", "gemm_ring.cuh"}
     assert all(plan.SEEDED_SLAB % bk == 0 for bk in bks.values())
-    assert bks["gemm_ring.cuh"] == plan.RING_BK and plan.RING_BK % bks["gemm.cuh"] == 0
+    assert bks["gemm_ring.cuh"] == plan.RING_BK
+    ring = (CSRC / "gemm_ring.cuh").read_text()
+    (run,) = map(int, re.findall(r"constexpr int RUN = (\d+);", ring))
+    assert run == 16 and plan.RING_BK % run == 0
     assert bks["gemm_bf16.cuh"] == plan.BF16_BK
     src = (CSRC / "gemm_bf16.cuh").read_text()
     (step,) = map(int, re.findall(r"constexpr int STEP = (\d+);", src))
     assert step == 16 and plan.BF16_BK % step == 0 and plan.SEEDED_SLAB % step == 0
     assert "m64n64k16.f32.bf16.bf16" in src  # each half of a step one wgmma, k16 deep
+
+
+def test_the_single_stage_f32_tile_is_gone():
+    """Every f32 tile of the port is the ring's: no source includes the old
+    single-stage tile's header or names its function, and the build hashes
+    exactly the headers that are there."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    assert sources
+    for f in sources:
+        text = f.read_text()
+        assert '#include "gemm.cuh"' not in text, f.name
+        assert "gemm_tile" not in text, f.name
+    assert not (CSRC / "gemm.cuh").exists()
+    assert set(build.HEADERS) == set(CSRC.glob("*.cuh"))
 
 
 @pytest.mark.parametrize("row_stride,itemsize,want", [
@@ -201,15 +222,87 @@ def test_bf16_copy_width(row_stride, want):
 
 def test_bf16_launchers_pass_the_copy_widths():
     """The bf16 tile's C functions take (width of A, width of B) after their
-    other arguments; the ring's and the rest take none."""
+    other arguments (a fused one: before phase 2's copy widths); the ring's
+    and the rest take none."""
     x, q = torch.empty(8192, 2 ** 10, dtype=torch.bfloat16), torch.empty(2 ** 10, 2060,
                                                                           dtype=torch.bfloat16)
     a, b = matmul._operand(x, 2 ** 10), matmul._operand(q, 2060)
     for fn in ("gemm_nn_bf16", "gemm_tn_bf16", "proj_stage_seeded_bf16", "projgram_bf16",
                "power_recompute_bf16", "projgram_seeded_bf16", "power_recompute_seeded_bf16"):
         assert matmul._widths(fn, a, b) == (16, 8)
-        assert build.SIGNATURES[build._LIB_OF[fn]][fn][-3:-1] == [build._int, build._int]
+        at = -4 if fn in matmul.FUSED else -3
+        assert build.SIGNATURES[build._LIB_OF[fn]][fn][at:at + 2] == [build._int, build._int]
     assert matmul._widths("gemm_nn_f32", a, b) == ()
     assert matmul._widths("gemm_tn_bf16_f32", a, b) == ()
     assert set(matmul.WGMMA) == {fn for forms in matmul.FORMS.values() for fn in forms.values()
                                  if fn.endswith("_bf16") and fn != "omega_fill_bf16"}
+
+
+_CTYPES = {"const void*": build._ptr, "void*": build._ptr, "int*": build._ptr,
+           "long long": build._i64, "int": build._int, "unsigned": build._u32}
+
+
+def _c_entries(source: str) -> dict:
+    """{function: [(C type, name), ...]} of the extern "C" block of a source."""
+    block = source.split('extern "C" {', 1)[1]
+    out = {}
+    for name, params in re.findall(r"^\w[\w ]*?\**\s*(\w+)\(([^)]*)\)\s*\{", block, re.M):
+        args = []
+        for param in " ".join(params.split()).split(", "):
+            ctype, arg = param.rsplit(" ", 1)
+            while arg.startswith("*"):
+                ctype, arg = ctype + "*", arg[1:]
+            args.append((ctype, arg))
+        out[name] = args
+    return out
+
+
+def test_fused_signatures_match_their_c_definitions():
+    """Every entry of ``recompute_f32.cu`` that ``build.SIGNATURES`` binds
+    takes, in the same order, the arguments its C definition takes — for a
+    fused entry the tile and copy widths of phase 1 (f32: ``vec``, and the
+    slabs' ``tile`` in the seeded form; bf16: ``wx``, ``wq``) and phase 2's
+    ``vec2`` just before the stream — and the Python launcher passes
+    exactly those."""
+    entries = _c_entries((CSRC / "recompute_f32.cu").read_text())
+    bound = build.SIGNATURES["recompute_f32"]
+    assert set(bound) == set(entries) - {"recompute_error_string"}
+    for fn, argtypes in bound.items():
+        assert argtypes == [_CTYPES[ctype] for ctype, _ in entries[fn]], fn
+    fused = [fn for fn in bound if not fn.endswith("_blocks_per_sm")]
+    assert set(fused) == set(matmul.FUSED)
+    x, q = (0, 2 ** 19, 4), (0, 970, 4)
+    a2, p = (4096, 1024, 4), (8192, 970, 4)
+    for fn in fused:
+        names = [name for _, name in entries[fn]]
+        want = {"recompute_f32": ["vec", "vec2"],
+                "recompute_seeded_f32": ["tile", "vec", "vec2"]}.get(fn, ["wx", "wq", "vec2"])
+        assert names[-len(want) - 1:] == want + ["stream"], fn
+        assert names[-len(want) - 2] == "accumulate", fn
+        extra = matmul._ring(fn, 8192, 970, x, q) + matmul._widths(fn, x, q) + matmul._phase2(
+            fn, a2, p)
+        assert len(extra) == len(want), fn
+    # phase 2 at the p = 910 shapes: a 16-byte A, a 4-byte P (3,880-byte rows)
+    assert matmul._phase2("recompute_f32", a2, p) == (1,)
+    assert matmul._phase2("gemm_tn_f32", a2, p) == ()
+
+
+@pytest.mark.parametrize("kt,slab_tile,grid", [(970, 0, 132), (2060, 1, 132), (67, 0, 64)])
+def test_fused_f32_plans_take_the_fused_tile(kt, slab_tile, grid):
+    """Both phases of the fused f32 kernel run the 128 × 128 ring tile: its
+    block and pinned shared memory, and a cooperative grid of its blocks per
+    SM on every SM, fewer where the larger phase has fewer tiles.  At the
+    p = 910 shapes that is f32_tile's own pick for P; a seeded call's slabs
+    before the last take f32_tile's pick (the 128 × 64 tile at k̃ = 2060)."""
+    assert plan.F32_TILES[plan.FUSED_F32_TILE][:2] == (128, 128)
+    assert plan.f32_tile(8192, 970) == plan.FUSED_F32_TILE
+    launches = plan.plan_projgram(8192, 2 ** 19, kt) + plan.plan_power_project_accumulate(
+        8192, 1024, 2 ** 19, kt) + plan.plan_projgram_seeded(8192, 9001, kt)
+    assert plan.f32_tile(8192, kt) == slab_tile
+    for p in launches:
+        if p.kernel == "omega_fill":
+            continue
+        i = plan.FUSED_F32_TILE if p.kernel == "recompute_f32" else slab_tile
+        assert p.block == (plan.F32_TILES[i][2],) and p.smem_bytes == plan.ring_smem(i)
+        if p.kernel == "recompute_f32":
+            assert p.grid == (grid,)

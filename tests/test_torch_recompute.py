@@ -223,8 +223,13 @@ def test_recompute_plan_charges_the_projection_per_bucket():
     proj = 2 * n * db * kt
     assert len(rec) == 3 and all(p.kernel == "recompute_f32" for p in rec)
     assert plan.cost(rec)[0] == stage.flops + sweep.flops + 2 * proj
-    assert all(p.grid[0] <= plan.RESIDENT_BLOCKS and p.block == (plan.THREADS,)
-               for p in rec)
+    # the fused launch runs the ring's fused tile (here f32_tile's pick for P
+    # too): its block and shared memory, at most its blocks per SM on every SM
+    tile = plan.FUSED_F32_TILE
+    assert tile == plan.f32_tile(n, kt)
+    _, _, threads, per_sm = plan.F32_TILES[tile]
+    assert all(p.grid[0] <= per_sm * plan.SMS and p.block == (threads,)
+               and p.smem_bytes == plan.ring_smem(tile) for p in rec)
     (one,) = plan.plan_projgram(n, 9001, 970)
     assert one.flops == 2 * n * 9001 * 970 + 2 * n * 970 * 970
     assert one.bytes == 4 * (n * 9001 + 9001 * 970 + n * 970 + 970 * 970)
