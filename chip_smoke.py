@@ -152,6 +152,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -178,6 +179,12 @@ STACK_ON_CARD_PEAK_GB = 69.47
 # Σρ of each stream fit of this run, by its label (run_fit): the bf16 fits
 # print their distance to the f32 fit of the same data and Ω
 SUM_RHO: dict = {}
+
+# the store phase at Europarl width: 8 full 512-row chunks and a 256-row tail
+# (two merge groups), 2 chunks a shard (verify() hashes its 10 files in parallel)
+STORE_N = 4352
+STORE_CHUNK = 512
+STORE_SHARD_ROWS = 1024
 
 # the p = 910 fit's sketch (k = 60) and the power pair's narrow A (one ΔY bucket)
 KT_910 = 970
@@ -1669,6 +1676,222 @@ def phase_stream_bf16(dev) -> dict:
                 launches_smoke["power_project_accumulate_seeded[bf16]"]}
 
 
+def same_fit(x, y) -> bool:
+    """ρ, Xa and Xb bitwise equal (two RCCAResults)."""
+    import torch
+
+    return all(torch.equal(u.cpu(), v.cpu()) for u, v in zip(x[:3], y[:3]))
+
+
+def host_rss_gb() -> tuple[float, float]:
+    """(current, peak) resident set of this process, GB."""
+    import resource
+
+    cur = 0.0
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            cur = int(line.split()[1]) * 1024 / 1e9
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def store_fit(wl, reader, label, want_launches, want_schedules, **kw):
+    """One store-backed fit through ``cca_fit.fit`` (prefetching
+    ``PassRunner``), counters zeroed just before and read just after;
+    prints its passes, IO lines, peak memory and digests."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import cca_fit
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = cca_fit.fit(wl, device="cuda", seed=SEED, store=reader, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[smoke] {label}: wall {wall:.3f} s, passes {rep.pass_seconds} s, schedules "
+          f"{rep.pass_schedules}, peak device memory {peak:.2f} GB, launches "
+          f"{kops.launch_counts()}, sum rho {float(rep.result.rho.double().sum()):.6f}, "
+          f"sha256 rho {digest(rep.result.rho)}, Xa {digest(rep.result.Xa)}", flush=True)
+    if rep.io is not None:
+        cca_fit.print_io(rep.io)
+    if want_launches is not None:
+        fit_checks(rep, label, want_launches, want_schedules)
+    return rep
+
+
+class Kill(Exception):
+    """A fit killed on purpose by its per-chunk callback."""
+
+
+def kill_and_resume(reader, cfg, ckpt, kill_at, label, **kw):
+    """Kill a store-backed kernels-engine fit at ``kill_at`` = (pass,
+    chunk), just before the cursor save of that chunk, then resume it in a
+    new runner → (the resumed result, its io)."""
+    from repro_torch.store import PassRunner
+
+    def crash(pass_idx, chunk_idx, *_):
+        if (pass_idx, chunk_idx) == kill_at:
+            raise Kill
+
+    runner = PassRunner(reader, cfg, ckpt_dir=str(ckpt), device="cuda", **kw)
+    t0 = time.perf_counter()
+    try:
+        runner.fit(seed=SEED, on_chunk=crash)
+        raise AssertionError(f"{label}: the fit was not killed at {kill_at}")
+    except Kill:
+        pass
+    finally:
+        runner.close()
+    killed = time.perf_counter() - t0
+    saved = runner._cursors
+    runner = PassRunner(reader, cfg, ckpt_dir=str(ckpt), device="cuda", **kw)
+    t0 = time.perf_counter()
+    try:
+        res = runner.fit(seed=SEED, resume=True)
+    finally:
+        runner.close()
+    io = res.diagnostics["io"]
+    print(f"[smoke] {label}: killed at {kill_at} after {killed:.3f} s; cursors saved "
+          f"{[(c['pass_idx'], c['next_chunk'], round(c['bytes'] / 1e9, 3), c['save_s']) for c in saved]} "
+          f"(pass, next chunk, GB, s); resumed in {time.perf_counter() - t0:.3f} s from "
+          f"{io['cursor_restored']}, {io['rows']} rows read of {2 * reader.n}", flush=True)
+    if not io["resumed"] or not io["rows"] < 2 * reader.n:
+        raise AssertionError(f"{label}: the resumed fit did not start from the cursor")
+    return res, io
+
+
+def phase_store(dev) -> None:
+    """The out-of-core main path: ``cca_fit --data STORE`` through the
+    view store, the prefetching ``PassRunner`` and the pass cursors.
+
+    Smoke width (``cca_fit --smoke --data D --ingest``: the rows of
+    ``DevicePlantedChunks`` on the card, 8 chunks of 512): the
+    store-backed kernels fit bitwise the in-memory fit, materialized and
+    ``--omega seeded``, within 1e-3 of the store-backed torch engine;
+    prefetch 0 ≡ 2 ≡ ``auto`` bitwise; kill → resume bitwise at three
+    points (mid power pass, at the power pass's end, mid final pass).
+
+    Europarl width, f32 (da = db = 2^19, k = 60, p = 2000, q = 1):
+    n = 4,352 rows in chunks of 512 — 8 full chunks and a 256-row tail,
+    two merge groups, 18.3 GB on disk.  The corpus's depth is cut for the
+    disk and the time limit; widths and sketch are not.  Checks: the
+    store's ``verify()``; the store-backed fit at prefetch 2 and at 0, each
+    bitwise the in-memory fit of the same rows and Ω; one kill in the
+    final pass after the first group's close (a cursor every 8 chunks:
+    17.3 GB in the power pass, 8.7 GB in the final one), resumed bitwise
+    the uninterrupted fit.  A resume from the power pass would be dearer:
+    it redoes the 8.6 GB merge-group work of pass 0 and all of pass 1.  Prints ingest and verify GB/s,
+    each pass's seconds, read and stall seconds and GB/s, the residency
+    rule, peak device memory and host RSS, and each cursor's bytes and
+    save and restore seconds.  The store and the cursors are deleted at
+    the end, whatever happens."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.europarl_cca import config, smoke_config
+    from repro_torch.launch import cca_fit
+    from repro_torch.store import ViewStoreReader
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "store_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # -- smoke width ---------------------------------------------------
+        smoke = ["--smoke", "--device", dev.type, "--seed", str(SEED)]
+        data = ["--data", str(root / "smoke")]
+        snc = 8
+        power = [{"power_project_accumulate": 2 * snc}, {"projgram": 2 * snc, "matmul_tn": snc}]
+        seeded = [{"power_project_accumulate_seeded": 2 * snc}, power[1]]
+        rep_s, _, _, _ = run_fit(smoke + data + ["--ingest"], "store smoke, kernels engine")
+        fit_checks(rep_s, "store smoke", power, ["recompute", "recompute"])
+        rep_m, _, _, _ = run_fit(smoke, "smoke in memory, kernels engine")
+        reps = {"0": run_fit(smoke + data + ["--prefetch", "0"], "store smoke, prefetch 0")[0],
+                "auto": run_fit(smoke + data + ["--prefetch", "auto"],
+                                "store smoke, prefetch auto")[0]}
+        rep_ss, _, _, _ = run_fit(smoke + data + ["--omega", "seeded"], "store smoke, seeded")
+        fit_checks(rep_ss, "store smoke seeded", seeded, ["recompute", "recompute"])
+        rep_ms, _, _, _ = run_fit(smoke + ["--omega", "seeded"], "smoke in memory, seeded")
+        rep_t, launches_t, _, _ = run_fit(smoke + data + ["--engine", "torch"],
+                                          "store smoke, torch engine")
+        gap = float((rep_s.result.rho.double() - rep_t.result.rho.double()).abs().max())
+        checks = {"store ≡ in memory": same_fit(rep_s.result, rep_m.result),
+                  "seeded store ≡ in memory": same_fit(rep_ss.result, rep_ms.result),
+                  "prefetch 0 ≡ 2": same_fit(reps["0"].result, rep_s.result),
+                  "prefetch auto ≡ 2": same_fit(reps["auto"].result, rep_s.result)}
+        reader = ViewStoreReader(str(root / "smoke"))
+        wl = smoke_config()
+        for kill_at in [(0, 5), (1, 0), (1, 5)]:
+            res, _ = kill_and_resume(reader, wl.rcca, root / f"ck_smoke_{kill_at[0]}_{kill_at[1]}",
+                                     kill_at, f"store smoke kill {kill_at}", ckpt_every=2)
+            checks[f"kill {kill_at} → resume ≡ uninterrupted"] = same_fit(res, rep_s.result)
+        print(f"[smoke] store smoke: {checks}; max |rho_kernels - rho_torch| = {gap:.3e} "
+              "(limit 1e-3)", flush=True)
+        if not all(checks.values()) or launches_t or not gap <= 1e-3:
+            raise AssertionError("store smoke: a store-backed fit is not bitwise its twin, "
+                                 "or the engines disagree")
+        del rep_s, rep_m, rep_ss, rep_ms, rep_t, reps, res
+
+        # -- Europarl width ------------------------------------------------
+        wl = dataclasses.replace(config(), n=STORE_N, chunk=STORE_CHUNK)
+        cfg = wl.rcca
+        nc = -(-wl.n // wl.chunk)
+        store_bytes = wl.n * (wl.da + wl.db) * 4
+        q_bytes = (wl.da + wl.db) * cfg.sketch * 4
+        # the power pass's cursor (Qa, Qb and one closed group) and the final
+        # pass's (Qa, Qb) coexist while the second is written
+        need = store_bytes + 2 * q_bytes + q_bytes
+        free = shutil.disk_usage(root).free
+        print(f"[smoke] store: Europarl width, n = {wl.n} rows in chunks of {wl.chunk} ({nc} "
+              f"chunks, two merge groups), {store_bytes / 1e9:.2f} GB on disk; cursors up to "
+              f"{2 * q_bytes / 1e9:.2f} GB; {free / 1e9:.2f} GB free at {root}", flush=True)
+        if need > free:
+            raise AssertionError(f"store phase: needs {need / 1e9:.2f} GB of disk, "
+                                 f"{free / 1e9:.2f} GB free")
+        path = str(root / "europarl")
+        reader, secs = cca_fit.ingest(path, wl, seed=SEED, device=dev,
+                                      rows_per_shard=STORE_SHARD_ROWS)
+        print(f"[smoke] store: ingested {reader.n} rows, {len(reader.shards)} shards, "
+              f"{reader.nbytes / 1e9:.3f} GB in {secs:.3f} s ({reader.nbytes / secs / 1e9:.3f} "
+              f"GB/s: made on the card, copied to the host, hashed and written)", flush=True)
+        t0 = time.perf_counter()
+        reader.verify()
+        secs = time.perf_counter() - t0
+        print(f"[smoke] store: verify() re-hashed {reader.nbytes / 1e9:.3f} GB in {secs:.3f} s "
+              f"({reader.nbytes / secs / 1e9:.3f} GB/s, page cache warm)", flush=True)
+        want = [{"proj_stage": 2 * nc, "powerpass_sweep": 2 * nc},
+                {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}]
+        staged = ["staged", "staged"]
+        mem = store_fit(wl, None, "Europarl in memory, kernels engine", want, staged)
+        ref = [t.cpu() for t in mem.result[:3]]
+        del mem
+        got = {}
+        for depth in (2, 0):
+            rep = store_fit(wl, reader, f"Europarl store, prefetch {depth}", want, staged,
+                            prefetch=depth)
+            got[f"store prefetch {depth} ≡ in memory"] = same_fit(rep.result, ref)
+            del rep
+        res, _ = kill_and_resume(reader, cfg, root / "ck_europarl", (1, 8),
+                                  "Europarl store kill in the final pass", ckpt_every=8, keep=1)
+        got["kill (1, 8) → resume ≡ uninterrupted"] = same_fit(res, ref)
+        print(f"[smoke] store Europarl: resumed sha256 rho {digest(res.rho)}, Xa "
+              f"{digest(res.Xa)}", flush=True)
+        del res
+        rss, rss_peak = host_rss_gb()
+        print(f"[smoke] store Europarl: {got}; host RSS {rss:.2f} GB now, {rss_peak:.2f} GB "
+              f"peak over the whole run", flush=True)
+        if not all(got.values()):
+            raise AssertionError("store Europarl: a store-backed fit is not bitwise the "
+                                 "in-memory fit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[smoke] store phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def ring_spills() -> None:
     """ptxas's registers and spills for each instance of the staged f32
     kernel (``gemm_ring.cuh`` ``ring_kernel``: NN or TN, its mode, its A
@@ -1906,6 +2129,7 @@ def main() -> int:
     dist_launched, rho_f32 = phase_dist(dev)
     launches.update(dist_launched)
     launches.update(phase_dist_bf16(dev, rho_f32))
+    phase_store(dev)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}

@@ -77,6 +77,15 @@ class RCCAConfig:
         return self.k + self.p
 
 
+def algo_meta(cfg: RCCAConfig) -> dict:
+    """The hyper-parameter identity that binds persisted pass state: pass
+    cursors embed and check exactly this dict.  ``dtype`` is the name
+    (``"float32"``, ``"bfloat16"``), as the reference writes it."""
+    return {"k": cfg.k, "p": cfg.p, "q": cfg.q, "center": cfg.center,
+            "nu": cfg.nu, "lam_a": cfg.lam_a, "lam_b": cfg.lam_b,
+            "dtype": str(cfg.dtype).removeprefix("torch.")}
+
+
 class RCCAResult(NamedTuple):
     Xa: torch.Tensor
     Xb: torch.Tensor
@@ -243,6 +252,20 @@ def stats_init_fn(kind: str, da: int, db: int, sketch: int, device=DEFAULT_DEVIC
         return lambda: init_power_stats(da, db, sketch, f32, device)
     if kind == "final":
         return lambda: init_final_stats(sketch, da, db, f32, device)
+    raise ValueError(f"unknown pass kind {kind!r}")
+
+
+def stats_like(kind: str, da: int, db: int, sketch: int):
+    """One pass flavor's accumulators as ``meta`` tensors: the shapes and
+    dtypes of :func:`stats_init_fn`'s, holding no memory."""
+    def z(*shape):
+        return torch.empty(shape, dtype=f32, device="meta")
+    if kind == "power":
+        return PowerStats(Ya=z(da, sketch), Yb=z(db, sketch), sa=z(da), sb=z(db),
+                          n=z(), tr_a=z(), tr_b=z())
+    if kind == "final":
+        return FinalStats(Ca=z(sketch, sketch), Cb=z(sketch, sketch), F=z(sketch, sketch),
+                          sa=z(da), sb=z(db), n=z(), tr_a=z(), tr_b=z())
     raise ValueError(f"unknown pass kind {kind!r}")
 
 
@@ -442,13 +465,16 @@ def randomized_cca_iterator(source_factory, da: int, db: int, cfg: RCCAConfig,
                             omega: str = "materialized", engine: str = DEFAULT_ENGINE,
                             merge_group: int = MERGE_GROUP_CHUNKS,
                             n_chunks: Optional[int] = None,
+                            resume_state: Optional[dict] = None, on_pass_end=None,
                             on_pass_complete=None,
                             device=DEFAULT_DEVICE) -> RCCAResult:
-    """Out-of-core driver: ``source_factory()`` yields (a, b) row chunks,
-    once per pass.  A shell over :meth:`PassEngine.run_stream`."""
+    """Out-of-core entry point: ``source_factory`` yields (a, b) row chunks,
+    once per pass (from a chunk index when its first parameter is named
+    ``start``).  A shell over :meth:`PassEngine.run_stream`."""
     from ..exec.engine import PassEngine
 
     eng = PassEngine(cfg, engine=engine, merge_group=merge_group, device=device, omega=omega)
     return eng.run_stream(source_factory, da, db, Qa0, Qb0, seed=seed, n_chunks=n_chunks,
+                          resume_state=resume_state, on_pass_end=on_pass_end,
                           on_pass_complete=on_pass_complete)
 

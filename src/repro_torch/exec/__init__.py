@@ -2,7 +2,8 @@
 topologies (port of ``repro.exec``)."""
 
 from .accumulate import MERGE_GROUP_CHUNKS, PairwiseStack, SegmentedAccumulator, merge_stats
-from .engine import PassEngine, StackedChunks, pass_schedule, run_fold
+from .engine import (PassEngine, StackedChunks, fit, n_full_chunks, open_source, pass_schedule,
+                     run_fold)
 from .topology import Local, Sharded, as_topology
 
 __all__ = [
@@ -14,7 +15,10 @@ __all__ = [
     "Sharded",
     "StackedChunks",
     "as_topology",
+    "fit",
     "merge_stats",
+    "n_full_chunks",
+    "open_source",
     "pass_schedule",
     "run_fold",
 ]

@@ -57,7 +57,7 @@ def host_buffer(like, locked: Optional[List[torch.Tensor]] = None) -> Stats:
     """Empty host tensors for a stats value described by ``like`` =
     (type, [(shape, dtype), ...]).  With ``locked`` given, each tensor is
     page-locked and appended to ``locked``, whose owner must unlock it
-    (:func:`_close`) before the tensor is freed."""
+    (:func:`unlock`) before the tensor is freed."""
     kind, fields = like
     out = kind(*(torch.empty(shape, dtype=dtype) for shape, dtype in fields))
     if locked is not None:
@@ -70,12 +70,17 @@ def host_buffer(like, locked: Optional[List[torch.Tensor]] = None) -> Stats:
     return out
 
 
-def _close(worker: ThreadPoolExecutor, locked: List[torch.Tensor]) -> None:
-    """A stack's finalizer: let its worker finish, then unlock its buffers."""
-    worker.shutdown(wait=True)
+def unlock(locked: List[torch.Tensor]) -> None:
+    """Unlock the host buffers :func:`host_buffer` locked into ``locked``."""
     for t in locked:
         _cuda_check(torch.cuda.cudart().cudaHostUnregister(t.data_ptr()), "cudaHostUnregister")
     locked.clear()
+
+
+def _close(worker: ThreadPoolExecutor, locked: List[torch.Tensor]) -> None:
+    """A stack's finalizer: let its worker finish, then unlock its buffers."""
+    worker.shutdown(wait=True)
+    unlock(locked)
 
 
 class PairwiseStack:
@@ -127,6 +132,33 @@ class PairwiseStack:
     def _ensure_spare(self) -> None:
         if not self._spare:
             self._spare.append(host_buffer(self._like, self._locked if self._lock else None))
+
+    @staticmethod
+    def counts_after(m: int) -> List[int]:
+        """Entry weights after ``m`` pushes: m's binary digits, highest first."""
+        return [1 << i for i in reversed(range(m.bit_length())) if m >> i & 1]
+
+    def snapshot(self) -> tuple:
+        """The entries once the pending merges are done (host tensors the
+        stack owns; a later push may merge into them)."""
+        self._wait()
+        return tuple(self.stack)
+
+    def load(self, entries, counts: List[int], device: torch.device) -> None:
+        """Take ``entries`` (host tensors, e.g. a checkpoint's) as the
+        stack of weights ``counts``: each is copied into a buffer the stack
+        owns, page-locked when the partials come from the card."""
+        self._wait()
+        self.device = device
+        self._lock = device.type == "cuda"
+        self.stack, self.counts = [], list(counts)
+        for e in entries:
+            if self._like is None:
+                self._like = (type(e), [(t.shape, t.dtype) for t in e])
+            buf = host_buffer(self._like, self._locked if self._lock else None)
+            for b, t in zip(buf, e):
+                b.copy_(t)
+            self.stack.append(buf)
 
     def _wait(self) -> None:
         if self._pending is not None:
@@ -199,6 +231,15 @@ class SegmentedAccumulator:
         self.groups_done = 0
         self._in_group = 0  # chunks folded into ``current`` so far
 
+    @staticmethod
+    def groups_completed(next_chunk: int, n_chunks: Optional[int], group_chunks: int) -> int:
+        """Merge groups fully folded once chunks [0, next_chunk) are in;
+        with a known length the ragged tail group completes with the last
+        chunk."""
+        if n_chunks is not None and next_chunk >= n_chunks:
+            return -(-n_chunks // group_chunks)
+        return next_chunk // group_chunks
+
     def update(self, chunk_idx: int, update_fn: Callable[..., Stats],
                a: Any, b: Any, Qa: Any, Qb: Any) -> None:
         """Fold one chunk, closing the merge group at its boundary."""
@@ -237,3 +278,52 @@ class SegmentedAccumulator:
     def result(self) -> Stats:
         r = self._tree.result()
         return self.init_fn() if r is None else r
+
+    # -- checkpointing ----------------------------------------------------
+
+    def state(self) -> dict:
+        """Checkpointable snapshot: ``"current"``, the open group's stats
+        on the device, or None between groups (its successor is made at
+        the next chunk); ``"stack"``, the closed entries, host tensors the
+        stack owns, once its pending merges are done.  Nothing is copied:
+        write the snapshot out before folding on."""
+        return {"current": self.current, "stack": self._tree.snapshot()}
+
+    def load_state(self, state, device=None) -> None:
+        """Continue from ``state`` (:meth:`state`'s layout, e.g. restored
+        host tensors): ``current`` is taken as given (place it on the
+        device first), the stack entries are copied into buffers the
+        stack owns — page-locked when ``device`` is a card — and their
+        weights follow from ``groups_done``, as :meth:`structure` set it."""
+        current, stack = state["current"], tuple(state["stack"])
+        if (current is None) != (self._in_group == 0):
+            raise ValueError(f"accumulator state {'lacks' if current is None else 'has'} an "
+                             f"open group, but {self._in_group} chunks of one are folded")
+        counts = PairwiseStack.counts_after(self.groups_done)
+        if len(counts) != len(stack):
+            raise ValueError(f"accumulator state has {len(stack)} stack entries; "
+                             f"{self.groups_done} completed groups imply {len(counts)}")
+        if device is None:
+            device = current[0].device if current is not None else torch.device("cpu")
+        self._tree.load(stack, counts, torch.device(device))
+        self.current = current
+
+    @classmethod
+    def structure(cls, init_fn: Callable[[], Stats], n_chunks: Optional[int],
+                  group_chunks: int, next_chunk: int,
+                  like: Optional[Stats] = None) -> "SegmentedAccumulator":
+        """The accumulator at a resume position (chunks [0, next_chunk)
+        folded), for :meth:`load_state`.  Given ``like`` (a stats value,
+        e.g. ``rcca.stats_like``), its :meth:`state` is the like-tree of a
+        restore, every entry a ``meta`` tensor: shapes and dtypes, no
+        memory (at Europarl width an entry is 8.6 GB)."""
+        acc = cls(init_fn, n_chunks, group_chunks)
+        acc.groups_done = cls.groups_completed(next_chunk, n_chunks, group_chunks)
+        acc._in_group = max(0, next_chunk - acc.groups_done * group_chunks)
+        if like is not None:
+            meta = type(like)(*(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                                for t in like))
+            acc.current = meta if acc._in_group else None
+            acc._tree.counts = PairwiseStack.counts_after(acc.groups_done)
+            acc._tree.stack = [meta] * len(acc._tree.counts)
+        return acc

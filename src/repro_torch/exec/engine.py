@@ -3,17 +3,23 @@
 Port of ``repro/exec/engine.py`` for the Local topology:
 
 - :func:`pass_schedule` — q power passes, then the final pass;
+- :func:`open_source` — a pass's chunk source, seeking where it can;
 - :func:`run_fold` — the canonical chunk-fold loop into a
-  :class:`~repro_torch.exec.accumulate.SegmentedAccumulator`;
+  :class:`~repro_torch.exec.accumulate.SegmentedAccumulator`, with the
+  per-chunk callback that cursor checkpointing hangs off;
 - :class:`StackedChunks` — random access over stacked in-memory chunks;
-- :class:`PassEngine` — owns the schedule, the accumulators and the
-  per-pass transitions.
+- :class:`PassEngine` — owns the schedule, the accumulators, the
+  per-pass transitions and resume from a pass cursor;
+- :func:`fit` — the entry point over a view store
+  (:class:`~repro_torch.store.PassRunner`).
 
-Resume state, the other topologies and the mesh fold are not ported yet.
+The streaming ``Sharded``, ``Cluster`` and ``Hybrid`` topologies and the
+mesh fold are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Iterable, Optional, Tuple
 
 import torch
@@ -28,6 +34,24 @@ def pass_schedule(q: int) -> Iterable[Tuple[int, str]]:
     for pass_idx in range(q):
         yield pass_idx, "power"
     yield q, "final"
+
+
+def open_source(source_factory, start_chunk: int):
+    """Instantiate one pass's chunk source → (source, index of its first
+    chunk).  A factory whose first positional parameter is named ``start``
+    (``PassRunner._source``, ``StackedChunks.iter_chunks``) is asked to
+    begin at ``start_chunk``, so a resumed pass never reads the skipped
+    prefix; any other is called with no argument and yields from chunk 0
+    (the fold then skips).  Opt-in is by name, not arity."""
+    try:
+        params = list(inspect.signature(source_factory).parameters.values())
+        seekable = bool(params) and params[0].name == "start" and params[0].kind in (
+            params[0].POSITIONAL_ONLY, params[0].POSITIONAL_OR_KEYWORD)
+    except (TypeError, ValueError):
+        seekable = False
+    if seekable:
+        return source_factory(start_chunk), start_chunk
+    return source_factory(), 0
 
 
 class StackedChunks:
@@ -52,11 +76,21 @@ class StackedChunks:
             yield self.get_chunk(i)
 
 
-def run_fold(indexed_chunks, update_fn, acc: SegmentedAccumulator, Qa, Qb
-             ) -> SegmentedAccumulator:
+def n_full_chunks(access) -> int:
+    """Chunks of ``access`` that carry a full ``chunk`` rows: every chunk
+    but a short tail."""
+    if access.n % access.chunk == 0:
+        return access.n_chunks
+    return access.n_chunks - 1
+
+
+def run_fold(indexed_chunks, update_fn, acc: SegmentedAccumulator, Qa, Qb, *,
+             on_chunk=None) -> SegmentedAccumulator:
     """The canonical chunk-fold loop: each ``(chunk_idx, (a, b))`` left-
     folds into ``acc``'s current merge group; ``acc`` closes groups at
-    the canonical boundaries.
+    the canonical boundaries.  ``on_chunk(chunk_idx, acc)`` runs after
+    every fold: cursor checkpointing, in-flight bounding and failure
+    injection live there, outside the fold.
 
     Each chunk is released before the next is pulled, so the source
     makes chunk i+1 while chunk i is already free: at Europarl width a
@@ -65,6 +99,8 @@ def run_fold(indexed_chunks, update_fn, acc: SegmentedAccumulator, Qa, Qb
     for chunk_idx, (a, b) in indexed_chunks:
         acc.update(chunk_idx, update_fn, a, b, Qa, Qb)
         del a, b
+        if on_chunk is not None:
+            on_chunk(chunk_idx, acc)
     acc.flush_tail()
     return acc
 
@@ -138,47 +174,83 @@ class PassEngine:
         layout the data-pass kernels take)."""
         return torch.as_tensor(x, device=self.device, dtype=self.cfg.dtype).contiguous()
 
-    def _indexed_on_device(self, source):
-        """``(chunk_idx, (a, b))`` on the device, holding no chunk while
-        the source makes the next one (``enumerate`` would: it keeps its
-        last result tuple for reuse)."""
+    def _indexed_on_device(self, source, offset: int, start_chunk: int):
+        """``(chunk_idx, (a, b))`` on the device for the chunks from
+        ``start_chunk`` on (``source`` yields from chunk ``offset``),
+        holding no chunk while the source makes the next one
+        (``enumerate`` would: it keeps its last result tuple for reuse)."""
         it = iter(source)
-        chunk_idx = 0
+        chunk_idx = offset
         while (ab := next(it, None)) is not None:
-            pair = (self._on_device(ab[0]), self._on_device(ab[1]))
-            del ab
-            yield chunk_idx, pair
-            del pair
+            if chunk_idx < start_chunk:  # a source that cannot seek: skip
+                del ab
+            else:
+                pair = (self._on_device(ab[0]), self._on_device(ab[1]))
+                del ab
+                yield chunk_idx, pair
+                del pair
             chunk_idx += 1
 
     def run_stream(self, source_factory, da: int, db: int, Qa=None, Qb=None, *,
                    seed: Optional[int] = None, n_chunks: Optional[int] = None,
+                   resume_state: Optional[dict] = None, on_pass_end=None,
                    on_pass_complete=None):
-        """All q+1 passes over ``source_factory()`` (called once per pass,
-        yielding (a, b) chunks) → ``RCCAResult``, from Ω = (Qa, Qb) or
-        from ``seed`` under the engine's omega mode.
+        """All q+1 passes over the chunk source → ``RCCAResult``, from Ω =
+        (Qa, Qb) or from ``seed`` under the engine's omega mode.
 
+        ``source_factory`` is called once per pass (:func:`open_source`:
+        with the chunk to start from when its first parameter is named
+        ``start``) and yields (a, b) chunks.
+
+        ``resume_state`` — ``{"pass_idx", "chunk_idx", "acc", "Qa",
+        "Qb"}``, a pass cursor (``store.PassRunner.restore_cursor``):
+        passes before ``pass_idx`` are skipped, the pass continues at chunk
+        ``chunk_idx`` from the accumulator state ``acc``
+        (:meth:`SegmentedAccumulator.state`'s layout, ``current`` on the
+        device) with the payload Qa/Qb it ran on (the seeds on a seeded
+        pass 0); Ω and ``seed`` are then not used.
+        ``on_pass_end(pass_idx, chunk_idx, acc, Qa, Qb)`` runs after every
+        chunk's fold (cursor saves hang off it).
         ``on_pass_complete(pass_idx, kind, acc, Qa, Qb)`` fires once per
         pass after its fold, with the accumulator and the Qa/Qb payload
-        the pass consumed (the seeds on a seeded pass 0).  The result's
-        ``diagnostics["schedules"]`` holds the schedule each pass's
-        kernels resolved (``"staged"``, ``"recompute"``, ``"a/b"`` when
-        the views differ, None under the torch engine).
+        the pass consumed.  The result's ``diagnostics["schedules"]``
+        holds the schedule each pass's kernels resolved (``"staged"``,
+        ``"recompute"``, ``"a/b"`` when the views differ, None under the
+        torch engine).
         """
         from ..core.rcca import (finalize_result, power_update_Q, seeded_update_fn,
                                  stats_init_fn, update_fn)
 
         cfg = self.cfg
-        Qa, Qb = self._init_payload(Qa, Qb, seed, da, db)
+        start_pass, start_chunk, acc_state = 0, 0, None
+        if resume_state is None:
+            Qa, Qb = self._init_payload(Qa, Qb, seed, da, db)
+        else:
+            start_pass = int(resume_state["pass_idx"])
+            start_chunk = int(resume_state["chunk_idx"])
+            acc_state = resume_state["acc"]
+            Qa, Qb = resume_state["Qa"], resume_state["Qb"]
         schedules = []
         for pass_idx, kind in pass_schedule(cfg.q):
-            acc = SegmentedAccumulator(
+            if pass_idx < start_pass:
+                continue
+            acc = SegmentedAccumulator.structure(
                 stats_init_fn(kind, da, db, cfg.sketch, self.device), n_chunks,
-                self.merge_group)
+                self.merge_group, start_chunk)
+            if acc_state is not None:
+                acc.load_state(acc_state, self.device)
+                acc_state = None
             seeded = self.seeds_in_slots and pass_idx == 0
             fn = seeded_update_fn(kind, cfg.sketch) if seeded else update_fn(kind, self.engine)
-            run_fold(self._indexed_on_device(source_factory()),
-                     self._recording(fn, kind, cfg.sketch, seeded, schedules), acc, Qa, Qb)
+            source, offset = open_source(source_factory, start_chunk)
+            cb = None
+            if on_pass_end is not None:
+                cb = (lambda ci, acc_, _p=pass_idx, _qa=Qa, _qb=Qb:
+                      on_pass_end(_p, ci, acc_, _qa, _qb))
+            run_fold(self._indexed_on_device(source, offset, start_chunk),
+                     self._recording(fn, kind, cfg.sketch, seeded, schedules), acc, Qa, Qb,
+                     on_chunk=cb)
+            start_chunk = 0
             if on_pass_complete is not None:
                 on_pass_complete(pass_idx, kind, acc, Qa, Qb)
             if kind == "power":
@@ -207,6 +279,34 @@ class PassEngine:
         return upd
 
     def run(self, access, Qa=None, Qb=None, **kwargs):
-        """All passes over a random-access chunk source (``StackedChunks``)."""
+        """All passes over a random-access chunk source (``StackedChunks``,
+        a ``ViewStoreReader``)."""
         return self.run_stream(access.iter_chunks, access.da, access.db, Qa, Qb,
                                n_chunks=access.n_chunks, **kwargs)
+
+
+def fit(store, cfg, seed: Optional[int] = None, *, Qa=None, Qb=None, topology=None,
+        engine: Optional[str] = None, merge_group: int = MERGE_GROUP_CHUNKS,
+        omega: str = "materialized", prefetch=2, ckpt_dir: Optional[str] = None,
+        resume: bool = False, device=DEFAULT_DEVICE):
+    """Fit RandomizedCCA over a view store (a ``ViewStoreReader`` or a
+    path/URI) from Ω = (Qa, Qb) or ``seed``.  The ``Local`` topology (the
+    default) runs the prefetching, cursor-checkpointed
+    :class:`~repro_torch.store.PassRunner`; the streaming ``Sharded``,
+    ``Cluster`` and ``Hybrid`` topologies are not ported yet."""
+    from ..core.rcca import DEFAULT_ENGINE
+    from ..store import PassRunner
+    from .topology import Local
+
+    if topology is not None and not isinstance(topology, Local) and topology != "local":
+        name = topology if isinstance(topology, str) else type(topology).__name__.lower()
+        raise NotImplementedError(
+            f"the {name} topology over a store is not ported yet (ROADMAP Queue 1 item 3: "
+            "the streaming Sharded, Cluster and Hybrid topologies); use the Local topology")
+    runner = PassRunner(store, cfg, engine=DEFAULT_ENGINE if engine is None else engine,
+                        prefetch=prefetch, ckpt_dir=ckpt_dir, merge_group=merge_group,
+                        omega=omega, device=device)
+    try:
+        return runner.fit(Qa, Qb, seed=seed, resume=resume)
+    finally:
+        runner.close()

@@ -12,9 +12,29 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
         --n-chunks 1 --microbatch 4096  # Europarl width, two ranks on one card
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --mode dist \
         --ranks 4 --compute-dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --ingest --ckpt-dir /tmp/c
+    # kill it mid-pass, then:
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --ckpt-dir /tmp/c --resume
 
 Port of ``repro/launch/cca_fit.py``, modes ``stream`` (the port's
-default; the reference defaults to ``dist``) and ``dist``.
+default; the reference defaults to ``dist``) and ``dist``.  Stream is the
+default because one rank cannot hold the Europarl corpus resident (5.2 TB
+in f32) and the store path below is stream mode only.
+
+``--data STORE`` fits from an on-disk view store (``repro_torch.store``,
+format-compatible with the reference's) through the prefetching
+:class:`~repro_torch.store.PassRunner` (``--prefetch N``: page-locked
+host chunk pairs ahead of the fold, 0 = synchronous reads, ``auto`` =
+calibrated); the store's geometry overrides the workload's.  ``--ingest``
+first writes there the rows the in-memory fit would stream
+(``DevicePlantedChunks`` on ``--device``, cut by ``--n-chunks``, in the
+compute dtype), after checking the target's free disk space.
+``--ckpt-dir`` saves a pass cursor every 8 chunks; ``--resume``
+continues a killed fit from the latest one, bit for bit.  Each pass
+prints its IO line: read and stall seconds, rows/s, GB read, prefetch
+depth.
 
 ``--mode stream``: rows are made on the device chunk by chunk
 (:class:`~repro_torch.data.DevicePlantedChunks`) and streamed through
@@ -58,7 +78,9 @@ import argparse
 import dataclasses
 import hashlib
 import math
+import os
 import resource
+import shutil
 import time
 from typing import NamedTuple, Optional
 
@@ -95,6 +117,7 @@ class FitReport(NamedTuple):
                        # merge stack) of each pass
     pass_schedules: list  # schedule the kernels resolved in each pass (None:
                           # torch engine)
+    io: Optional[dict] = None  # a store-backed fit's diagnostics["io"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -107,17 +130,61 @@ def _launched(counts: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)}
 
 
+def planted(wl: CCAWorkload, *, seed: int = 0, n_chunks: Optional[int] = None,
+            device=DEFAULT_DEVICE) -> DevicePlantedChunks:
+    """The rows a stream-mode fit of ``wl`` streams: the planted model on
+    ``device`` in ``wl.rcca.dtype``, n cut to ``n_chunks`` chunks."""
+    cfg = wl.rcca
+    n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
+    return DevicePlantedChunks(n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
+                               chunk=wl.chunk, dtype=cfg.dtype, device=resolve_device(device))
+
+
+def _existing_dir(path: str) -> str:
+    d = os.path.dirname(os.path.abspath(path.rstrip("/")))
+    while not os.path.exists(d):
+        d = os.path.dirname(d)
+    return d
+
+
+def ingest(path: str, wl: CCAWorkload, *, seed: int = 0, n_chunks: Optional[int] = None,
+           device=DEFAULT_DEVICE, rows_per_shard: Optional[int] = None):
+    """Write :func:`planted`'s rows to a view store at ``path`` → (reader,
+    seconds).  Raises ``SystemExit`` before writing when the store would
+    not fit in the target's free disk space."""
+    from ..dtypes import logical_name
+    from ..store import ingest_planted
+
+    data = planted(wl, seed=seed, n_chunks=n_chunks, device=device)
+    need = data.n * (wl.da + wl.db) * torch.empty((), dtype=wl.rcca.dtype).element_size()
+    target = _existing_dir(path)
+    free = shutil.disk_usage(target).free
+    if need > free:
+        raise SystemExit(f"[cca] --ingest: the store needs {need / 1e9:.2f} GB, but {target} "
+                         f"has {free / 1e9:.2f} GB free")
+    t0 = time.perf_counter()
+    reader = ingest_planted(path, data, dtype=logical_name(wl.rcca.dtype),
+                            rows_per_shard=rows_per_shard)
+    return reader, time.perf_counter() - t0
+
+
 def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
-        seed: int = 0, n_chunks: int | None = None, omega: str = "materialized") -> FitReport:
+        seed: int = 0, n_chunks: int | None = None, omega: str = "materialized",
+        store=None, prefetch=2, ckpt_dir: Optional[str] = None,
+        resume: bool = False) -> FitReport:
     """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks,
     Ω from ``seed`` under ``omega``, rows and Ω in ``wl.rcca.dtype``.
     Pass 0's interval includes making Ω (the seeded-materialized mode's
-    two ``omega_fill`` launches)."""
+    two ``omega_fill`` launches).
+
+    With ``store`` (a ``ViewStoreReader``) the rows come from it through
+    a :class:`~repro_torch.store.PassRunner` (``prefetch``, cursors in
+    ``ckpt_dir``, ``resume``), and n is the store's."""
+    from ..store import PassRunner
+
     dev = resolve_device(device)
     cfg = wl.rcca
-    n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
-    data = DevicePlantedChunks(n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
-                               chunk=wl.chunk, dtype=cfg.dtype, device=dev)
+    data = planted(wl, seed=seed, n_chunks=n_chunks, device=dev) if store is None else None
     pass_seconds, pass_launches, pass_groups = [], [], []
     _sync(dev)
     marks = {"t": time.perf_counter(), "launches": kops.launch_counts()}
@@ -130,12 +197,22 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         pass_groups.append((acc.groups_done, acc.host_seconds))
         marks.update(t=now, launches=counts)
 
-    res = randomized_cca_iterator(lambda: iter(data), wl.da, wl.db, cfg, seed=seed,
-                                  omega=omega, engine=engine, n_chunks=data.n_chunks,
-                                  on_pass_complete=on_pass_complete, device=dev)
+    if store is None:
+        res = randomized_cca_iterator(lambda: iter(data), wl.da, wl.db, cfg, seed=seed,
+                                      omega=omega, engine=engine, n_chunks=data.n_chunks,
+                                      on_pass_complete=on_pass_complete, device=dev)
+        n, nc = data.n, data.n_chunks
+    else:
+        runner = PassRunner(store, cfg, engine=engine, prefetch=prefetch, ckpt_dir=ckpt_dir,
+                            omega=omega, device=dev)
+        try:
+            res = runner.fit(seed=seed, resume=resume, on_pass_complete=on_pass_complete)
+        finally:
+            runner.close()
+        n, nc = store.n, store.n_chunks
     _sync(dev)
-    return FitReport(res, n, data.n_chunks, pass_seconds, pass_launches, pass_groups,
-                     res.diagnostics["schedules"])
+    return FitReport(res, n, nc, pass_seconds, pass_launches, pass_groups,
+                     res.diagnostics["schedules"], res.diagnostics.get("io"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,12 +386,16 @@ def fit_dist(wl: CCAWorkload, *, n_ranks: int, mesh_shape=None, engine: str = DE
 
 
 def evaluate(rep: FitReport, wl: CCAWorkload, *, seed: int = 0,
-             device=DEFAULT_DEVICE) -> dict:
-    """Small-scale check of a fit: materializes the rows, then the
-    feasibility residuals and the gap of Σρ to the exact dense CCA."""
+             device=DEFAULT_DEVICE, rows=None) -> dict:
+    """Small-scale check of a fit: materializes the rows (or takes them:
+    ``rows`` = (A, B)), then the feasibility residuals and the gap of Σρ
+    to the exact dense CCA."""
     cfg = wl.rcca
-    A, B = DevicePlantedChunks(rep.n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
-                               chunk=wl.chunk, device=device).materialize()
+    if rows is None:
+        rows = DevicePlantedChunks(rep.n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=seed,
+                                   chunk=wl.chunk, device=device).materialize()
+    dev = resolve_device(device)
+    A, B = (x.to(dev, torch.float32) for x in rows)
     lam_a = float(rep.result.diagnostics["lam_a"])
     lam_b = float(rep.result.diagnostics["lam_b"])
     feas = feasibility_errors(A, B, rep.result.Xa, rep.result.Xb, lam_a, lam_b)
@@ -334,6 +415,22 @@ def _print_dist(rep: DistReport, cfg) -> None:
     if reports[0]["peak_gb"] is not None:
         print(f"[cca] peak device memory per rank "
               f"{[round(r['peak_gb'], 2) for r in reports]} GB")
+
+
+def print_io(io: dict, first_pass: int = 0) -> None:
+    """A store-backed fit's IO, one line per pass, then its cursors."""
+    for i, p in enumerate(io["passes"], start=first_pass):
+        rate = p["rows"] / p["seconds"] if p["seconds"] else float("inf")
+        print(f"[cca] pass {i} io: read {p['read_s']:.3f} s, stall {p['io_stall_s']:.3f} s, "
+              f"{rate:.1f} rows/s, {p['bytes'] / 1e9:.3f} GB read ({p['gb_per_s']:.3f} GB/s "
+              f"over {p['seconds']:.3f} s), prefetch depth {p['prefetch_depth']}")
+    for c in io["cursors_saved"]:
+        print(f"[cca] cursor saved at pass {c['pass_idx']} chunk {c['next_chunk']}: "
+              f"{c['bytes'] / 1e9:.3f} GB in {c['save_s']:.3f} s")
+    c = io["cursor_restored"]
+    if c is not None:
+        print(f"[cca] resumed from the cursor at pass {c['pass_idx']} chunk {c['next_chunk']}: "
+              f"{c['bytes'] / 1e9:.3f} GB restored in {c['restore_s']:.3f} s")
 
 
 def main(argv=None):
@@ -380,7 +477,22 @@ def main(argv=None):
     ap.add_argument("--center", action="store_true",
                     help="mean-center both views (the rank-one update of paper §3)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data", default=None, metavar="STORE",
+                    help="fit from the view store at this path or URI (stream mode); its "
+                         "geometry overrides the workload's")
+    ap.add_argument("--ingest", action="store_true",
+                    help="first write the rows the in-memory fit would stream into --data "
+                         "(made on --device, cut by --n-chunks)")
+    ap.add_argument("--prefetch", default="2",
+                    help="store prefetch depth: page-locked host chunk pairs ahead of the "
+                         "fold (0 = synchronous reads, 'auto' = calibrated)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save a pass cursor of the store-backed fit here every 8 chunks")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue a killed store-backed fit from the latest cursor in "
+                         "--ckpt-dir")
     args = ap.parse_args(argv)
+    prefetch = args.prefetch if args.prefetch == "auto" else int(args.prefetch)
 
     wl = smoke_config() if args.smoke else config()
     overrides = {f: getattr(args, f) for f in ("k", "p", "q") if getattr(args, f) is not None}
@@ -390,6 +502,31 @@ def main(argv=None):
         overrides["dtype"] = COMPUTE_DTYPES[args.compute_dtype]
     if overrides:
         wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, **overrides))
+    if args.data and args.mode == "dist":
+        raise SystemExit("--data is stream mode only: the resident sharded fit over a store "
+                         "is not ported yet (ROADMAP Queue 1 item 3)")
+    if not args.data and (args.ingest or args.ckpt_dir or args.resume):
+        raise SystemExit("--ingest, --ckpt-dir and --resume need a store: pass --data")
+    reader = None
+    if args.data:
+        from ..store import ViewStoreReader, store_exists
+
+        if args.ingest or not store_exists(args.data):
+            reader, secs = ingest(args.data, wl, seed=args.seed, n_chunks=args.n_chunks,
+                                  device=args.device)
+            print(f"[cca] ingested {reader.n} rows ({reader.nbytes / 1e9:.3f} GB, "
+                  f"{len(reader.shards)} shards, {reader.dtype}) -> {args.data} in {secs:.2f} s "
+                  f"({reader.nbytes / secs / 1e9:.3f} GB/s)")
+        else:
+            reader = ViewStoreReader(args.data)
+            print(f"[cca] view store {args.data}: n={reader.n} da={reader.da} db={reader.db} "
+                  f"chunk={reader.chunk} {reader.dtype} ({reader.nbytes / 1e9:.3f} GB)")
+        geometry = (reader.n, reader.da, reader.db, reader.chunk)
+        if geometry != (wl.n, wl.da, wl.db, wl.chunk):
+            print(f"[cca] store geometry overrides the workload: n={reader.n} da={reader.da} "
+                  f"db={reader.db} chunk={reader.chunk}")
+            wl = dataclasses.replace(wl, n=reader.n, da=reader.da, db=reader.db,
+                                     chunk=reader.chunk)
     cfg = wl.rcca
     t0 = time.perf_counter()
     if args.mode == "dist":
@@ -413,19 +550,24 @@ def main(argv=None):
         _print_dist(rep, cfg)
     else:
         rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
-                  n_chunks=args.n_chunks, omega=args.omega)
+                  n_chunks=args.n_chunks, omega=args.omega, store=reader,
+                  prefetch=prefetch, ckpt_dir=args.ckpt_dir, resume=args.resume)
         dt = time.perf_counter() - t0
-        print(f"[cca] stream mode, engine={args.engine}, omega={args.omega}, "
-              f"compute_dtype={args.compute_dtype}, "
+        print(f"[cca] stream mode{' (store-backed)' if reader else ''}, engine={args.engine}, "
+              f"omega={args.omega}, compute_dtype={args.compute_dtype}, "
               f"device={args.device}, n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}) "
               f"da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}")
+        first = cfg.q + 1 - len(rep.pass_seconds)  # a resumed fit skips passes
         for i, (sec, launches, (groups, host_s), sched) in enumerate(
-                zip(rep.pass_seconds, rep.pass_launches, rep.pass_groups, rep.pass_schedules)):
+                zip(rep.pass_seconds, rep.pass_launches, rep.pass_groups, rep.pass_schedules),
+                start=first):
             kind = "final" if i == cfg.q else "power"
             print(f"[cca] pass {i} ({kind}): {sec:.3f} s, schedule {sched}, kernel launches "
                   f"{launches}; "
                   f"merge stack: {groups} groups closed to the host, {host_s:.3f} s of the "
                   "pass spent there")
+        if rep.io is not None:
+            print_io(rep.io, first)
     rho = rep.result.rho.double().cpu()
     print(f"[cca] done in {dt:.1f}s; sum rho = {float(rho.sum()):.4f}; "
           f"top-5 rho = {[round(float(r), 6) for r in rho[:5]]}")
@@ -435,7 +577,13 @@ def main(argv=None):
               f"peak host RSS {rss_kib * 1024 / 1e9:.2f} GB (closed merge groups live there)")
 
     if args.smoke:
-        ev = evaluate(rep, wl, seed=args.seed, device=args.device)
+        rows = None
+        if reader is not None:
+            if reader.nbytes > 2 << 30:
+                print("[cca] store larger than the evaluation budget: no exact-oracle check")
+                return rep
+            rows = reader.materialize()
+        ev = evaluate(rep, wl, seed=args.seed, device=args.device, rows=rows)
         print("[cca] feasibility:", ev["feasibility"])
         print(f"[cca] exact-oracle objective gap: {ev['gap']:.5f} "
               f"(exact {ev['exact_sum_rho']:.4f})")

@@ -140,3 +140,79 @@ def test_card_partials_land_in_page_locked_buffers():
         np.testing.assert_array_equal(a.cpu().numpy(), np.asarray(b))
     del got, tree
     assert locked == []
+
+
+# --------------------------------------------------------------------------
+# checkpointing: state, load_state, structure
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_chunks", [1, 8, 9, 16, 21])
+@pytest.mark.parametrize("group", [2, 8])
+def test_groups_completed_matches_reference(n_chunks, group):
+    for nxt in range(n_chunks + 1):
+        for total in (n_chunks, None):
+            assert (tacc.SegmentedAccumulator.groups_completed(nxt, total, group)
+                    == jacc.SegmentedAccumulator.groups_completed(nxt, total, group))
+
+
+def _update(s, a, b, *_):
+    return Two(s.y + a, s.n + b)
+
+
+@pytest.mark.parametrize("n_chunks", [7, 8])
+def test_state_round_trip_continues_bitwise(n_chunks):
+    """Fold m chunks, snapshot the state as a checkpoint would (copies),
+    rebuild at chunk m from ``structure`` + ``load_state`` and fold the
+    rest: the bits of the uninterrupted fold, for every m (the open group
+    is None exactly at group closes, the stack holds popcount(groups)
+    entries)."""
+    y, n = _values(n_chunks, 3)
+    zeros = lambda: Two(torch.zeros(5, 3), torch.zeros(()))
+    whole = _fold(tacc, zeros, torch.from_numpy, y, n).result()
+    for m in range(n_chunks + 1):
+        acc = tacc.SegmentedAccumulator(zeros, n_chunks, GROUP)
+        for i in range(m):
+            acc.update(i, _update, torch.from_numpy(y[i]), torch.from_numpy(np.asarray(n[i])),
+                       None, None)
+        st = acc.state()
+        assert (st["current"] is None) == (m % GROUP == 0 or m == n_chunks)
+        assert len(st["stack"]) == bin(acc.groups_done).count("1")
+        saved = {"current": None if st["current"] is None else Two(*(t.clone() for t in
+                                                                     st["current"])),
+                 "stack": tuple(Two(*(t.clone() for t in e)) for e in st["stack"])}
+        del acc, st
+        back = tacc.SegmentedAccumulator.structure(zeros, n_chunks, GROUP, m)
+        back.load_state(saved, "cpu")
+        assert all(e is not s for e, s in zip(back._tree.stack, saved["stack"]))  # its own
+        for i in range(m, n_chunks):
+            back.update(i, _update, torch.from_numpy(y[i]), torch.from_numpy(np.asarray(n[i])),
+                        None, None)
+        back.flush_tail()
+        assert all(torch.equal(a, b) for a, b in zip(back.result(), whole)), m
+
+
+def test_structure_like_holds_no_memory():
+    """A like-tree for a restore at Europarl width costs nothing: every
+    entry is a meta tensor."""
+    like = Two(torch.empty(2 ** 19, 2060, device="meta"), torch.empty((), device="meta"))
+    for nxt, current, depth in [(0, False, 0), (3, True, 0), (8, False, 1), (13, True, 2),
+                                (19, False, 2)]:
+        acc = tacc.SegmentedAccumulator.structure(lambda: None, 19, 4, nxt, like=like)
+        st = acc.state()
+        assert (st["current"] is not None) == current
+        assert len(st["stack"]) == depth == bin(acc.groups_done).count("1")
+        for e in st["stack"] + ((st["current"],) if current else ()):
+            assert all(t.device.type == "meta" for t in e)
+            assert tuple(e.y.shape) == (2 ** 19, 2060)
+
+
+def test_load_state_checks_the_stack_and_the_open_group():
+    zeros = lambda: Two(torch.zeros(5, 3), torch.zeros(()))
+    entry = zeros()
+    acc = tacc.SegmentedAccumulator.structure(zeros, 9, GROUP, 6)  # 3 groups done
+    with pytest.raises(ValueError, match="1 stack entries; 3 completed groups imply 2"):
+        acc.load_state({"current": None, "stack": (entry,)})
+    with pytest.raises(ValueError, match="open group"):
+        tacc.SegmentedAccumulator.structure(zeros, 9, GROUP, 5).load_state(
+            {"current": None, "stack": (entry, entry)})
