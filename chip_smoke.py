@@ -78,18 +78,21 @@ Phases, each of which fails the run by raising:
    2060) and at 333 × 9001 → 67: within 4·√K·u of its plain version,
    bitwise repeatable, bitwise ``proj_stage`` on the same operands, with
    times;
-9. dist — the resident sharded fit through ``cca_fit --mode dist``: at
-   Europarl width (one 8192-row chunk, p = 2000, microbatch 4096) two
-   ranks on a 1 × 1 × 2 mesh share the card over gloo, once per
+9. dist — the resident sharded fit (``cca_fit.fit_dist_runs``, the
+   ``--mode dist`` path), as jobs of rank processes that each run a list
+   of fits (one spawn and rendezvous a job, the rows and Ω made once per
+   mesh): at Europarl width (one 8192-row chunk, p = 2000, microbatch
+   4096) two ranks on a 1 × 1 × 2 mesh share the card over gloo, once per
    collective (``unfused``, ``fused``, ``fused-int8ef``) and once on the
-   torch engine: unfused ≡ fused bitwise in ρ and in each rank's Xa and
-   Xb, the launches per rank and pass of the ``ops`` table, |Δρ| ≤ 1e-3
-   against the torch engine and against stream mode on the same chunk
-   and Ω, int8ef within rtol 0.05 / atol 0.02 of fused, each rank's peak
-   memory printed; then the smoke width, centered, on four ranks
-   (1 × 2 × 2), where the row and the column sums are both real.  The
-   ranks are fresh processes, so their launch counters start at 0 in
-   each run, and each rank reports its own;
+   torch engine, then the same at bf16 (phase 11's): unfused ≡ fused
+   bitwise in ρ and in each rank's Xa and Xb, the launches per rank and
+   pass of the ``ops`` table, |Δρ| ≤ 1e-3 against the torch engine and
+   against stream mode on the same chunk and Ω, int8ef within rtol 0.05 /
+   atol 0.02 of fused, each rank's peak memory printed; then one job at the
+   smoke width, centered, on four ranks (1 × 2 × 2, where the row and the
+   column sums are both real; each collective in f32 and bf16, then
+   1 × 4 × 1 in bf16).  Each fit resets its ranks' launch counters, and
+   each rank reports its own;
 10. bf16 kernels — the eight bf16-operand forms (``proj_stage[bf16]``,
     ``matmul_nn[bf16]``, ``powerpass_sweep[bf16]`` and ``[bf16,f32]``,
     ``matmul_tn[bf16]``, ``gram_sweep[bf16]``, ``projgram[bf16]``,
@@ -106,14 +109,15 @@ Phases, each of which fails the run by raising:
     operands at ``proj_stage[bf16]``'s main-path shape, the bf16 sweeps'
     and ``gram_sweep[bf16]``'s: "bitwise equal" or the count of differing
     elements and the largest ulp distance, and both tiles' times;
-11. dist bf16 — ``cca_fit --mode dist --compute-dtype bfloat16``: at
-    Europarl width on 1 × 1 × 2 (``unfused`` ≡ ``fused`` bitwise per rank,
-    the bf16 launches per rank and pass, |Δρ| ≤ 1e-3 against the torch
-    engine, |ρ_bf16 − ρ_f32| printed) and on 1 × 1 × 1 (the chunk updates:
-    ``proj_stage[bf16]`` and ``powerpass_sweep[bf16,f32]``; ρ within 1e-3
-    of 1 × 1 × 2); then the smoke width, centered, on four ranks: 1 × 2 × 2
-    under all three collectives and 1 × 4 × 1, where both passes
-    recompute (``power_project_accumulate[bf16]``, ``projgram[bf16]``);
+11. dist bf16 — the sharded fit at ``compute_dtype=bfloat16``, from phase
+    9's jobs: at Europarl width on 1 × 1 × 2 (``unfused`` ≡ ``fused``
+    bitwise per rank, the bf16 launches per rank and pass, |Δρ| ≤ 1e-3
+    against the torch engine, |ρ_bf16 − ρ_f32| printed) and on 1 × 1 × 1
+    (a job of its own; the chunk updates: ``proj_stage[bf16]`` and
+    ``powerpass_sweep[bf16,f32]``; ρ within 1e-3 of 1 × 1 × 2); then the
+    smoke width, centered, on four ranks: 1 × 2 × 2 under all three
+    collectives and 1 × 4 × 1, where both passes recompute
+    (``power_project_accumulate[bf16]``, ``projgram[bf16]``);
 12. seeded bf16 kernels (right after phase 10) — the bf16 generator
     ``omega_fill[bf16]`` at (2^19, 2060) and at a ragged (300, 70):
     bitwise the card's f32 Ω cast to bf16, each element equal to the plain
@@ -137,7 +141,18 @@ Phases, each of which fails the run by raising:
     bitwise its oracle; the smoke width, centered (both passes recompute):
     seeded bitwise its oracle, kernels against torch.  Each fit prints its
     launches by name, schedules, pass times, peak memory and Σρ beside
-    the f32 fit's.
+    the f32 fit's;
+14. store — the out-of-core main path (``phase_store``): store-backed
+    fits bitwise the in-memory fits at the smoke and Europarl widths,
+    prefetch 0 ≡ 2 ≡ auto, kill → resume bitwise, IO per pass, cursors;
+15. cluster (inside phase 14, on its stores) — the Cluster topology
+    (``phase_cluster``): at the smoke width two workers, combine 1 with one
+    worker killed and re-dispatched and combine 2, bitwise the Local fit;
+    at Europarl width the Local store fit with ``--omega seeded``, then the
+    cluster fit of the same store in a child process (two workers sharing
+    the card), bitwise it, its launches summed over the workers the Local
+    fit's, every worker on ``cuda:0``, each pass's publish, barrier, merge
+    and boundary seconds, its bytes and each worker's peak memory.
 
 Every fit resets the launch counters just before it and reads them just
 after, and every kernels-engine stream fit, f32 or bf16, prints the first
@@ -153,12 +168,16 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
@@ -193,7 +212,8 @@ DA_NARROW = 1024
 # the sharded fit at Europarl width: one 8192-row chunk on a 1 × 1 × 2 mesh
 # (two ranks sharing the card over gloo), two microbatches per pass
 DIST_MICROBATCH = 4096
-DIST_MESH = "1,1,2"
+DIST_SHAPE = (1, 1, 2)
+COLLECTIVES = ("unfused", "fused", "fused-int8ef")
 
 GEMM = "src/repro_torch/kernels/csrc/gemm_f32.cu"
 GEMM_BF16 = "src/repro_torch/kernels/csrc/gemm_bf16.cu"
@@ -1132,20 +1152,40 @@ def phase_fit_910(dev) -> dict:
             "projgram_seeded": launches_s["projgram_seeded"]}
 
 
-def run_dist(argv, label):
-    """One dist-mode run of the launcher; the ranks are fresh processes
-    whose launch counters start at 0.  Returns the report."""
+def dist_job(runs: dict, n_ranks: int, label: str, smoke: bool = False) -> dict:
+    """Several sharded fits (label → ``cca_fit.DistRun``) on ONE job of rank
+    processes (``cca_fit.fit_dist_runs``: one spawn and rendezvous, the rows
+    and Ω made once per mesh): at Europarl width one 8192-row chunk, at the
+    smoke width the centered smoke workload, gathered.  The ranks are fresh
+    processes whose launch counters each fit resets.  Returns label →
+    report, printing each fit's passes and each rank's peak memory."""
     import torch
 
+    from repro_torch.configs.europarl_cca import config, smoke_config
     from repro_torch.launch import cca_fit
 
+    wl = config()
+    if smoke:
+        wl = smoke_config()
+        wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, center=True))
     torch.cuda.empty_cache()  # the ranks need the card; this process holds nothing
     t0 = time.perf_counter()
-    rep = cca_fit.main(["--mode", "dist", "--device", "cuda", "--seed", str(SEED)] + argv)
-    print(f"[smoke] {label}: wall {time.perf_counter() - t0:.3f} s, backend {rep.backend}, "
-          f"ranks on {rep.devices}, peak memory per rank "
-          f"{[round(r['peak_gb'], 2) for r in rep.ranks]} GB", flush=True)
-    return rep
+    reps = cca_fit.fit_dist_runs(wl, list(runs.values()), n_ranks=n_ranks, device="cuda",
+                                 seed=SEED, n_chunks=None if smoke else 1, gather=smoke)
+    print(f"[smoke] {label}: one job of {len(runs)} fits on {n_ranks} ranks, wall "
+          f"{time.perf_counter() - t0:.3f} s, backend {reps[0].backend}, ranks on "
+          f"{reps[0].devices}", flush=True)
+    out = {}
+    for (name, run), rep in zip(runs.items(), reps):
+        secs = [round(max(r["pass_seconds"][i] for r in rep.ranks), 3)
+                for i in range(len(rep.ranks[0]["pass_seconds"]))]
+        print(f"[smoke] dist {name}: mesh {run.mesh_shape}, engine {run.engine}, collective "
+              f"{run.collective}, compute dtype {run.compute_dtype}: slowest rank's passes "
+              f"{secs} s, peak memory per rank {[round(r['peak_gb'], 2) for r in rep.ranks]} GB "
+              "(the job's first fit on a mesh includes making the data)", flush=True)
+        cca_fit._print_dist(rep, wl.rcca)
+        out[name] = rep
+    return out
 
 
 def dist_launches(collective: str, nb: int, bf16: bool = False) -> list:
@@ -1192,27 +1232,34 @@ def dist_checks(reps: dict, nb: int, label: str, bf16: bool = False) -> None:
             raise AssertionError(f"{label}: rho leaves [0, 1]")
 
 
-def phase_dist(dev) -> dict:
-    """The sharded fit through ``cca_fit --mode dist``: at Europarl width
-    (one 8192-row chunk, p = 2000) two ranks on a 1 × 1 × 2 mesh share
-    the card over gloo, each collective on the kernels engine, then the
-    torch engine, then stream mode on the same chunk and Ω; then the
-    smoke width, centered, on four ranks (1 × 2 × 2), where the row and
-    the column sums are both real.  Returns matmul_nn's launches and the
-    fused run's ρ."""
+def phase_dist(dev):
+    """The sharded fit (``cca_fit.fit_dist_runs``, the ``--mode dist`` path):
+    at Europarl width (one 8192-row chunk, p = 2000) two ranks on a
+    1 × 1 × 2 mesh share the card over gloo, each collective on the
+    kernels engine, then the torch engine, then the same fits at bf16
+    (phase 11 checks those), all on one job; then stream mode on the same
+    chunk and Ω; then the smoke width, centered, on one job of four ranks:
+    1 × 2 × 2, where the row and the column sums are both real, under each
+    collective in f32 and bf16, and 1 × 4 × 1 in bf16.  Returns
+    matmul_nn's launches, the fused run's ρ and both jobs' reports."""
     import numpy as np
     import torch
 
     from repro_torch.launch import cca_fit
 
-    argv = ["--mesh", DIST_MESH, "--n-chunks", "1", "--microbatch", str(DIST_MICROBATCH)]
-    print(f"[smoke] dist: Europarl width, n = 8192 (one chunk), mesh {DIST_MESH}, "
+    run = functools.partial(cca_fit.DistRun, DIST_SHAPE, microbatch=DIST_MICROBATCH)
+    print(f"[smoke] dist: Europarl width, n = 8192 (one chunk), mesh {DIST_SHAPE}, "
           f"microbatch {DIST_MICROBATCH}", flush=True)
-    reps = {c: run_dist(argv + ["--collective", c], f"dist {c}")
-            for c in ("unfused", "fused", "fused-int8ef")}
+    bf16 = {"compute_dtype": "bfloat16"}
+    ereps = dist_job({"unfused": run(collective="unfused"), "fused": run(),
+                      "fused-int8ef": run(collective="fused-int8ef"),
+                      "torch engine": run(engine="torch"),
+                      "bf16 unfused": run(collective="unfused", **bf16),
+                      "bf16 fused": run(**bf16), "bf16 torch engine": run(engine="torch", **bf16)},
+                     2, "dist Europarl")
     nb = 8192 // DIST_MICROBATCH
-    dist_checks(reps, nb, "dist Europarl")
-    rep_t = run_dist(argv + ["--engine", "torch"], "dist torch engine")
+    dist_checks(ereps, nb, "dist Europarl")
+    rep_t = ereps["torch engine"]
     if any(r["pass_launches"] != [{}, {}] for r in rep_t.ranks):
         raise AssertionError("the torch engine launched a kernel")
     torch.cuda.empty_cache()
@@ -1220,21 +1267,23 @@ def phase_dist(dev) -> dict:
     rep_s = cca_fit.main(["--device", "cuda", "--seed", str(SEED), "--n-chunks", "1"])
     rho_s = rep_s.result.rho.double().cpu().numpy()
     del rep_s
-    rho_f = reps["fused"].result.rho.numpy()
+    rho_f = ereps["fused"].result.rho.numpy()
     gap_t = float(np.abs(rho_f - rep_t.result.rho.numpy()).max())
     gap_s = float(np.abs(rho_f - rho_s).max())
     print(f"[smoke] dist Europarl: max |rho_kernels - rho_torch| = {gap_t:.3e}, max "
           f"|rho_dist - rho_stream| = {gap_s:.3e} (limits 1e-3); sum rho {rho_f.sum():.6f}, "
-          f"stream {rho_s.sum():.6f}; lam_a {reps['fused'].result.diagnostics['lam_a']:.6g}",
+          f"stream {rho_s.sum():.6f}; lam_a {ereps['fused'].result.diagnostics['lam_a']:.6g}",
           flush=True)
     if not gap_t <= 1e-3 or not gap_s <= 1e-3:
         raise AssertionError("dist Europarl: the fit disagrees with the torch engine or "
                              "with stream mode")
 
-    smoke = ["--smoke", "--center", "--ranks", "4", "--mesh", "1,2,2"]
-    print("[smoke] dist: smoke width, centered, 4 ranks on 1 × 2 × 2", flush=True)
-    sreps = {c: run_dist(smoke + ["--collective", c], f"dist smoke {c}")
-             for c in ("unfused", "fused", "fused-int8ef")}
+    print("[smoke] dist: smoke width, centered, 4 ranks on 1 × 2 × 2 and 1 × 4 × 1", flush=True)
+    smoke = {c: cca_fit.DistRun((1, 2, 2), collective=c) for c in COLLECTIVES}
+    smoke.update({f"bf16 {c}": cca_fit.DistRun((1, 2, 2), collective=c, **bf16)
+                  for c in COLLECTIVES})
+    smoke["bf16 1 x 4 x 1"] = cca_fit.DistRun((1, 4, 1), **bf16)
+    sreps = dist_job(smoke, 4, "dist smoke", smoke=True)
     dist_checks(sreps, 1, "dist smoke")
     torch.cuda.reset_peak_memory_stats()
     rep_ss = cca_fit.main(["--smoke", "--center", "--device", "cuda", "--seed", str(SEED)])
@@ -1244,9 +1293,9 @@ def phase_dist(dev) -> dict:
           flush=True)
     if not gap <= 1e-3:
         raise AssertionError("dist smoke: the fit disagrees with stream mode")
-    return {"matmul_nn": sum(r["pass_launches"][0]["matmul_nn"]
-                             + r["pass_launches"][1]["matmul_nn"]
-                             for r in reps["unfused"].ranks)}, rho_f
+    return ({"matmul_nn": sum(r["pass_launches"][0]["matmul_nn"]
+                              + r["pass_launches"][1]["matmul_nn"]
+                              for r in ereps["unfused"].ranks)}, rho_f, ereps, sreps)
 
 
 def same_per_rank(a, b) -> list:
@@ -1263,26 +1312,23 @@ def launches_of(reps, names) -> dict:
             for n in names}
 
 
-def phase_dist_bf16(dev, rho_f32) -> dict:
-    """The sharded fit at ``--compute-dtype bfloat16``: at Europarl width
-    (one chunk, microbatch 4096) two ranks on 1 × 1 × 2 sharing the card,
-    ``unfused`` and ``fused`` on the kernels engine (bitwise equal per
-    rank; the bf16 launches of the ``ops`` table), then the torch engine
-    (|Δρ| ≤ 1e-3); one rank on 1 × 1 × 1, where the chunk updates run
-    ``proj_stage[bf16]`` and ``powerpass_sweep[bf16,f32]`` (ρ within 1e-3
-    of the two-rank fused run); then the smoke width on four ranks,
-    centered: 1 × 2 × 2 under all three collectives and 1 × 4 × 1, where
-    both passes recompute (ρ within 1e-3 of 1 × 2 × 2 fused).  ``rho_f32``:
-    the f32 fused run's ρ at Europarl width, for |ρ_bf16 − ρ_f32|.
-    Returns each bf16 form's launches in the runs that drive it."""
+def phase_dist_bf16(dev, rho_f32, ereps, sreps) -> dict:
+    """The sharded fit at ``compute_dtype=bfloat16``, from phase 9's jobs:
+    at Europarl width on 1 × 1 × 2 ``unfused`` and ``fused`` on the kernels
+    engine (bitwise equal per rank; the bf16 launches of the ``ops``
+    table), the torch engine (|Δρ| ≤ 1e-3); then one rank on 1 × 1 × 1 (a
+    job of its own), where the chunk updates run ``proj_stage[bf16]`` and
+    ``powerpass_sweep[bf16,f32]`` (ρ within 1e-3 of the two-rank fused
+    run); then the smoke width on four ranks, centered: 1 × 2 × 2 under all
+    three collectives and 1 × 4 × 1, where both passes recompute (ρ within
+    1e-3 of 1 × 2 × 2 fused).  ``rho_f32``: the f32 fused run's ρ at
+    Europarl width, for |ρ_bf16 − ρ_f32|.  Returns each bf16 form's
+    launches in the runs that drive it."""
     import numpy as np
 
-    bf16 = ["--compute-dtype", "bfloat16"]
-    argv = ["--mesh", DIST_MESH, "--n-chunks", "1", "--microbatch", str(DIST_MICROBATCH)] + bf16
-    print(f"[smoke] dist bf16: Europarl width, n = 8192 (one chunk), mesh {DIST_MESH}, "
-          f"microbatch {DIST_MICROBATCH}", flush=True)
-    reps = {c: run_dist(argv + ["--collective", c], f"dist bf16 {c}")
-            for c in ("unfused", "fused")}
+    from repro_torch.launch import cca_fit
+
+    reps = {c: ereps[f"bf16 {c}"] for c in ("unfused", "fused")}
     nb = 8192 // DIST_MICROBATCH
     for coll, rep in reps.items():
         for r in rep.ranks:
@@ -1291,11 +1337,12 @@ def phase_dist_bf16(dev, rho_f32) -> dict:
                 raise AssertionError(f"dist bf16 {coll} rank {r['rank']}: launches "
                                      f"{r['pass_launches']}, want {want}")
     same = same_per_rank(reps["unfused"], reps["fused"])
-    rep_t = run_dist(argv + ["--engine", "torch"], "dist bf16 torch engine")
+    rep_t = ereps["bf16 torch engine"]
     if any(r["pass_launches"] != [{}, {}] for r in rep_t.ranks):
         raise AssertionError("the torch engine launched a kernel")
-    rep_1 = run_dist(["--mesh", "1,1,1", "--n-chunks", "1", "--microbatch",
-                      str(DIST_MICROBATCH)] + bf16, "dist bf16 1 x 1 x 1")
+    rep_1 = dist_job({"bf16 1 x 1 x 1": cca_fit.DistRun((1, 1, 1), microbatch=DIST_MICROBATCH,
+                                                        compute_dtype="bfloat16")},
+                     1, "dist bf16 1 x 1 x 1")["bf16 1 x 1 x 1"]
     want_1 = [{"proj_stage[bf16]": 2 * nb, "powerpass_sweep[bf16,f32]": 2 * nb},
               {"proj_stage[bf16]": 2 * nb, "gram_sweep": 2 * nb, "matmul_tn": nb}]
     if rep_1.ranks[0]["pass_launches"] != want_1:
@@ -1318,18 +1365,14 @@ def phase_dist_bf16(dev, rho_f32) -> dict:
         if not rho_ok(rep.result.rho):
             raise AssertionError("dist bf16 Europarl: rho leaves [0, 1]")
 
-    smoke = ["--smoke", "--center", "--ranks", "4"] + bf16
-    print("[smoke] dist bf16: smoke width, centered, 4 ranks on 1 × 2 × 2 and 1 × 4 × 1",
-          flush=True)
-    sreps = {c: run_dist(smoke + ["--mesh", "1,2,2", "--collective", c], f"dist bf16 smoke {c}")
-             for c in ("unfused", "fused", "fused-int8ef")}
-    dist_checks(sreps, 1, "dist bf16 smoke", bf16=True)
-    rep_r = run_dist(smoke + ["--mesh", "1,4,1"], "dist bf16 smoke 1 x 4 x 1")
+    sb = {c: sreps[f"bf16 {c}"] for c in COLLECTIVES}
+    dist_checks(sb, 1, "dist bf16 smoke", bf16=True)
+    rep_r = sreps["bf16 1 x 4 x 1"]
     want_r = [{"power_project_accumulate[bf16]": 2}, {"projgram[bf16]": 2, "matmul_tn": 1}]
     if any(r["pass_launches"] != want_r for r in rep_r.ranks):
         raise AssertionError(f"dist bf16 smoke 1 x 4 x 1: launches "
                              f"{[r['pass_launches'] for r in rep_r.ranks]}, want {want_r}")
-    gap = float(np.abs(rep_r.result.rho.numpy() - sreps["fused"].result.rho.numpy()).max())
+    gap = float(np.abs(rep_r.result.rho.numpy() - sb["fused"].result.rho.numpy()).max())
     print(f"[smoke] dist bf16 smoke: max |rho_1x4x1 - rho_1x2x2| = {gap:.3e} (limit 1e-3)",
           flush=True)
     if not gap <= 1e-3 or not rho_ok(rep_r.result.rho):
@@ -1886,10 +1929,192 @@ def phase_store(dev) -> None:
         if not all(got.values()):
             raise AssertionError("store Europarl: a store-backed fit is not bitwise the "
                                  "in-memory fit")
+        print(f"[smoke] store phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        phase_cluster(dev, root, reader, wl)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
-    print(f"[smoke] store phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+CLUSTER_CHILD = "--cluster-child"
+CLUSTER_TIMEOUT_S = 600  # the Europarl-width cluster fit's child, workers included
+
+
+def cluster_child(store: str, cluster_dir: str) -> int:
+    """The Europarl-width cluster fit, in a process of its own (its host
+    memory does not stack on this script's): ``repro_torch.exec.fit`` with
+    ``Cluster(n_workers=2)``, ``omega="seeded"`` and a worker cursor every
+    8 chunks; prints the coordinator's passes and one ``[cluster] {json}``
+    line: Σρ, the ρ and Xa digests, the per-pass diagnostics (the
+    coordinator's host RSS after each merge among them) and its peak
+    device memory."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.exec import Cluster, fit
+    from repro_torch.launch import cca_fit
+
+    t0 = time.perf_counter()
+    res = fit(store, config().rcca, SEED, topology=Cluster(n_workers=2), cluster_dir=cluster_dir,
+              omega="seeded", ckpt_every=8, device="cuda")
+    wall = time.perf_counter() - t0
+    cl = res.diagnostics["cluster"]
+    cca_fit.print_cluster(cl)
+    print("[cluster] " + json.dumps({
+        "wall_s": wall, "sum_rho": float(res.rho.double().sum()), "rho": digest(res.rho),
+        "Xa": digest(res.Xa), "passes": cl["passes"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}),
+        flush=True)
+    return 0
+
+
+def dir_gb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
+
+
+def phase_cluster(dev, root: Path, reader, wl) -> None:
+    """The Cluster topology (``repro_torch.cluster``) on the card.
+
+    Smoke width (phase 14's smoke store, 8 chunks of 512, merge groups of
+    2: four groups): ``exec.fit`` with ``Cluster(n_workers=2)``, combine 1
+    with worker 0 killed after chunk 2 of pass 0 (``RCCA_CLUSTER_KILL_AT``,
+    its groups re-dispatched to a repair worker), and combine 2: each
+    bitwise the Local store fit with the same merge groups; the combine-2
+    fit's launches summed over its workers are the Local fit's.  The two
+    run on threads, beside the Local seeded fit below (their wall is
+    mostly their workers' start-up).
+
+    Europarl width (phase 14's store: 4,352 rows, 9 chunks of 512, two
+    merge groups, 18.3 GB): the Local store fit with ``--omega seeded``,
+    then the cluster fit of the same store in a child process (two
+    workers sharing the card, a worker cursor every 8 chunks, the pass-0
+    round carrying the seeds): its ρ and Xa bitwise the Local fit's, its
+    launches summed over the workers the Local fit's pass by pass, every
+    worker on ``cuda:0``.  Prints each pass's publish, barrier, merge and
+    boundary seconds, the GB of its round, partials and cursors, each
+    worker's peak device memory and host RSS, and the free disk.  The
+    cluster directories are deleted at the end, whatever happens."""
+    import shutil
+
+    import torch
+
+    from repro_torch.cluster.worker import KILL_ENV
+    from repro_torch.configs.europarl_cca import smoke_config
+    from repro_torch.exec import Cluster, fit
+    from repro_torch.kernels import ops as kops
+    from repro_torch.store import ViewStoreReader
+
+    t_phase = time.perf_counter()
+    for ck in root.glob("ck_*"):  # phase 14's cursors: their disk goes to the cluster
+        shutil.rmtree(ck, ignore_errors=True)
+    try:
+        # -- smoke width, and the Local seeded fit at Europarl width ----------
+        sreader = ViewStoreReader(str(root / "smoke"))
+        scfg = smoke_config().rcca
+        kops.reset_launch_counts()
+        local = fit(sreader, scfg, SEED, merge_group=2, device="cuda")
+        local_launches = kops.launch_counts()
+
+        def smoke_cluster(combine, env):
+            t0 = time.perf_counter()
+            res = fit(sreader, scfg, SEED, topology=Cluster(n_workers=2), merge_group=2,
+                      cluster_dir=str(root / f"cluster_smoke_{combine}"), combine_groups=combine,
+                      env_overrides=env, device="cuda", worker_timeout=300)
+            return res, time.perf_counter() - t0
+
+        cases = {"combine 1, worker 0 killed at 0:2": (1, {0: {KILL_ENV: "0:2"}}),
+                 "combine 2": (2, None)}
+        nc = reader.n_chunks
+        want = [{"proj_stage_seeded": 2 * nc, "powerpass_sweep": 2 * nc},
+                {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}]
+        # the smoke cluster fits run on threads (each coordinator waits on its
+        # worker processes; none launches a kernel in this process) while
+        # the Local seeded fit of the Europarl store runs here
+        with ThreadPoolExecutor(len(cases)) as pool:
+            futs = {label: pool.submit(smoke_cluster, *case) for label, case in cases.items()}
+            loc = store_fit(wl, reader, "Europarl store, omega=seeded (Local)", want,
+                            ["staged", "staged"], omega="seeded")
+            smoke_out = {label: f.result() for label, f in futs.items()}
+        checks = {}
+        for label, (res, wall) in smoke_out.items():
+            passes = res.diagnostics["cluster"]["passes"]
+            summed = {}
+            for p in passes:
+                for k, v in p["launches"].items():
+                    summed[k] = summed.get(k, 0) + v
+            devices = sorted({w["device"] for p in passes for w in p["workers"]})
+            print(f"[smoke] cluster smoke, {label}: wall {wall:.3f} s (beside the Local fit), "
+                  f"passes {[p['wall_s'] for p in passes]} s, re-dispatched "
+                  f"{[p['redispatched_groups'] for p in passes]}, partials merged "
+                  f"{[p['merge_fan_in'] for p in passes]}, launches over the workers {summed}, "
+                  f"workers on {devices}", flush=True)
+            checks[f"{label} ≡ Local"] = same_fit(res, local)
+            checks[f"{label}: workers on cuda:0"] = devices == ["cuda:0"]
+            if cases[label][1] is not None:
+                checks[f"{label}: re-dispatched"] = passes[0]["redispatched_groups"] == [2]
+            else:
+                checks[f"{label}: launches ≡ Local"] = summed == local_launches
+        print(f"[smoke] cluster smoke: {checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError("cluster smoke: a cluster fit is not bitwise the Local fit, "
+                                 "or its launches or devices are wrong")
+
+        # -- Europarl width --------------------------------------------------
+        want_digest = (digest(loc.result.rho), digest(loc.result.Xa))
+        want_sum = float(loc.result.rho.double().sum())
+        del loc
+        torch.cuda.empty_cache()
+        cdir = root / "cluster"
+        free = shutil.disk_usage(root).free
+        print(f"[smoke] cluster Europarl: {free / 1e9:.2f} GB of disk free before the fit",
+              flush=True)
+        t0 = time.perf_counter()
+        # a session of its own: on a time-out its workers are killed with it
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), CLUSTER_CHILD,
+                                 reader.path, str(cdir)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=CLUSTER_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        print(stdout, end="", flush=True)
+        if proc.returncode != 0:
+            print(stderr[-20000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"cluster Europarl: the child exited with {proc.returncode}")
+        out = json.loads([ln for ln in stdout.splitlines()
+                          if ln.startswith("[cluster] ")][-1][len("[cluster] "):])
+        gb = {d: round(dir_gb(cdir / d), 3) for d in ("rounds", "partials", "workers")}
+        print(f"[smoke] cluster Europarl: child wall {wall:.3f} s (fit {out['wall_s']:.3f} s); "
+              f"disk used: rounds {gb['rounds']} GB, partials {gb['partials']} GB, cursors "
+              f"{gb['workers']} GB; {shutil.disk_usage(root).free / 1e9:.2f} GB free; "
+              f"coordinator peak device memory {out['peak_gb']:.2f} GB, host RSS after "
+              f"each merge {[p['rss_gb_after_merge'] for p in out['passes']]} GB", flush=True)
+        for i, p in enumerate(out["passes"]):
+            print(f"[smoke] cluster Europarl pass {i}: publish {p['publish_s']} s, barrier "
+                  f"{p['barrier_s']} s, merge {p['merge_s']} s, boundary {p['boundary_s']} s; "
+                  f"round {p['round_bytes'] / 1e9:.3f} GB, partials "
+                  f"{p['partial_bytes'] / 1e9:.3f} GB, cursors {p['cursor_bytes'] / 1e9:.3f} GB; "
+                  "workers (shard, device, groups, s, peak device GB, largest RSS GB) "
+                  f"{[(w['shard'], w['device'], w['groups'], w['seconds'], round(w['peak_gb'], 2), round(w['rss_peak_gb'], 2)) for w in p['workers']]}",
+                  flush=True)
+        got = {"rho, Xa ≡ Local seeded": (out["rho"], out["Xa"]) == want_digest,
+               "launches ≡ Local": [p["launches"] for p in out["passes"]] == want,
+               "workers on cuda:0": all(w["device"] == "cuda:0" for p in out["passes"]
+                                        for w in p["workers"]),
+               "two workers a pass": all(len(p["workers"]) == 2 for p in out["passes"])}
+        print(f"[smoke] cluster Europarl: sum rho {out['sum_rho']:.6f} (Local {want_sum:.6f}), "
+              f"sha256 rho {out['rho']}, Xa {out['Xa']}; {got}", flush=True)
+        if not all(got.values()):
+            raise AssertionError("cluster Europarl: the cluster fit is not bitwise the Local "
+                                 "seeded fit, or its launches or devices are wrong")
+    finally:
+        for d in root.glob("cluster*"):
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[smoke] cluster phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def ring_spills() -> None:
@@ -2057,6 +2282,9 @@ def sass_hmma() -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == [CLUSTER_CHILD]:  # phase 15's child: the cluster fit
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        return cluster_child(*sys.argv[2:4])
     try:
         import torch
     except ImportError:
@@ -2126,9 +2354,10 @@ def main() -> int:
     launches.update(phase_fit(dev))
     launches.update(phase_fit_910(dev))
     launches.update(phase_stream_bf16(dev))
-    dist_launched, rho_f32 = phase_dist(dev)
+    dist_launched, rho_f32, ereps, sreps = phase_dist(dev)
     launches.update(dist_launched)
-    launches.update(phase_dist_bf16(dev, rho_f32))
+    launches.update(phase_dist_bf16(dev, rho_f32, ereps, sreps))
+    del ereps, sreps
     phase_store(dev)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

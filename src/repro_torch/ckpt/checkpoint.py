@@ -30,7 +30,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from ..dtypes import as_tensor, bits_view, logical_name, storage_dtype
+from ..dtypes import EXOTIC, as_tensor, bits_view, logical_name, storage_dtype
 
 MANIFEST = "manifest.json"
 
@@ -103,11 +103,13 @@ def _manifest(directory: str) -> dict:
         return json.load(f)
 
 
-def _load_leaf(directory: str, info: dict) -> torch.Tensor:
-    arr = np.load(os.path.join(directory, info["file"]), mmap_mode="r")
+def _load_leaf(directory: str, info: dict, mapped: bool = False) -> torch.Tensor:
+    arr = np.load(os.path.join(directory, info["file"]), mmap_mode="c" if mapped else "r")
     if arr.dtype != storage_dtype(info["dtype"]):
         raise ValueError(f"checkpoint leaf {info['file']} is {arr.dtype}, manifest says "
                          f"{info['dtype']}")
+    if mapped and info["dtype"] not in EXOTIC and arr.size:
+        return torch.from_numpy(arr)  # a private (copy-on-write) map: no copy made here
     return as_tensor(arr, info["dtype"])
 
 
@@ -136,11 +138,13 @@ def load_metadata(directory: str) -> dict:
     return _manifest(directory)["metadata"]
 
 
-def load_flat(directory: str) -> tuple[dict, dict]:
+def load_flat(directory: str, *, mapped: bool = False) -> tuple[dict, dict]:
     """A checkpoint as a flat ``key → host tensor`` dict and its metadata,
-    without a like-tree."""
+    without a like-tree.  ``mapped=True`` returns the leaves of plain
+    dtypes as tensors over private memory maps of their files (read when
+    used, never written back) instead of copies."""
     manifest = _manifest(directory)
-    return ({k: _load_leaf(directory, info) for k, info in manifest["leaves"].items()},
+    return ({k: _load_leaf(directory, info, mapped) for k, info in manifest["leaves"].items()},
             manifest["metadata"])
 
 

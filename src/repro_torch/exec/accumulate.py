@@ -20,6 +20,14 @@ rate; PyTorch's pinned allocator would round each 4.3 GB field up to
 8 GB.  Locking a new 8.6 GB buffer and adding two on the host take
 seconds each, so both run on a worker thread while the card computes
 the next chunks.
+
+The group-level entry points serve the topologies whose merge groups are
+folded elsewhere (a cluster worker's partials): an accumulator with a
+``sink`` hands each closed group to it instead of the tree;
+:meth:`SegmentedAccumulator.push_group_span` feeds a group sum, or an
+aligned dyadic span of them, into the tree in group order;
+:class:`SpanCombiner` pre-merges a worker's runs of groups into such
+spans; :func:`reduce_group_partials` reduces an in-memory set.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from __future__ import annotations
 import time
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Mapping, Optional
 
 import torch
 
@@ -78,9 +86,20 @@ def unlock(locked: List[torch.Tensor]) -> None:
 
 
 def _close(worker: ThreadPoolExecutor, locked: List[torch.Tensor]) -> None:
-    """A stack's finalizer: let its worker finish, then unlock its buffers."""
-    worker.shutdown(wait=True)
+    """A stack's close and finalizer: stop its worker, unlock its buffers.
+
+    Nothing is queued on the worker by then (a queued merge holds the
+    stack, so a stack being collected has none; :meth:`PairwiseStack.close`
+    waits for its own first), so the worker is not joined: a finalizer run
+    by the garbage collector inside another thread's start-up would
+    deadlock on the join."""
+    worker.shutdown(wait=False)
     unlock(locked)
+
+
+def _check_span(count: int) -> None:
+    if count < 1 or count & (count - 1):
+        raise ValueError(f"span weight must be a power of two, got {count}")
 
 
 class PairwiseStack:
@@ -118,7 +137,17 @@ class PairwiseStack:
         self._locked: List[torch.Tensor] = []
         self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="merge-stack")
         self._pending: Optional[Future] = None
-        weakref.finalize(self, _close, self._worker, self._locked).atexit = False
+        self._finalizer = weakref.finalize(self, _close, self._worker, self._locked)
+        self._finalizer.atexit = False
+
+    def close(self) -> None:
+        """Wait for the pending merges, stop the worker thread and unlock
+        the buffers (the entries are then no longer page-locked); safe to
+        call more than once."""
+        try:
+            self._wait()
+        finally:
+            self._finalizer()
 
     def expect(self, s: Stats) -> None:
         """Announce partials shaped like ``s`` (the open group): the first
@@ -177,6 +206,17 @@ class PairwiseStack:
 
     def push(self, s: Stats, more: bool = True) -> None:
         """Add partial ``s``; ``more=False`` says it is the last one."""
+        self.push_span(s, 1, more)
+
+    def push_span(self, s: Stats, count: int, more: bool = True) -> None:
+        """Add ``s``, the canonical pairwise sum of ``count`` consecutive
+        partials (a power of two), as one entry of weight ``count``.  When
+        the span is aligned (it starts at a multiple of ``count``) it is one
+        subtree of the binary-counter reduction, so this merges exactly as
+        its ``count`` partials pushed one by one would; alignment is the
+        caller's contract (:meth:`SegmentedAccumulator.push_group_span`
+        checks it)."""
+        _check_span(count)
         if s[0].device.type == "cuda":
             torch.cuda.synchronize(s[0].device)
         t0 = time.perf_counter()
@@ -187,7 +227,7 @@ class PairwiseStack:
         for b, t in zip(buf, s):
             b.copy_(t)
         self.stack.append(buf)
-        self.counts.append(1)
+        self.counts.append(count)
         if more:
             self._pending = self._worker.submit(self._merge, True)
         else:
@@ -212,7 +252,9 @@ class PairwiseStack:
 class SegmentedAccumulator:
     """Canonical accumulation of one data pass: chunks left-fold into the
     current group; each completed group (every ``group_chunks`` chunks,
-    plus the ragged tail) enters a :class:`PairwiseStack`.
+    plus the ragged tail) enters a :class:`PairwiseStack` or, when a
+    ``sink`` is given, is handed to ``sink(group index, stats)`` (a
+    cluster worker's publish path; the stack then stays empty).
 
     A closed group's successor is made only when the next chunk arrives,
     not at the close: at Europarl width one zero PowerStats is 8.6 GB,
@@ -220,16 +262,23 @@ class SegmentedAccumulator:
     """
 
     def __init__(self, init_fn: Callable[[], Stats], n_chunks: Optional[int],
-                 group_chunks: int = MERGE_GROUP_CHUNKS):
+                 group_chunks: int = MERGE_GROUP_CHUNKS,
+                 sink: Optional[Callable[[int, Stats], None]] = None):
         if group_chunks <= 0:
             raise ValueError("merge group size must be positive")
         self.init_fn = init_fn
         self.n_chunks = None if n_chunks is None else int(n_chunks)
         self.group_chunks = int(group_chunks)
+        self.sink = sink
         self.current: Optional[Stats] = None
         self._tree = PairwiseStack()
         self.groups_done = 0
         self._in_group = 0  # chunks folded into ``current`` so far
+        self._last_chunk = -1  # global index of the last folded chunk
+
+    @property
+    def n_groups(self) -> int:
+        return -(-self.n_chunks // self.group_chunks)
 
     @staticmethod
     def groups_completed(next_chunk: int, n_chunks: Optional[int], group_chunks: int) -> int:
@@ -245,12 +294,14 @@ class SegmentedAccumulator:
         """Fold one chunk, closing the merge group at its boundary."""
         if self.current is None:
             self.current = self.init_fn()
-            self._tree.expect(self.current)
+            if self.sink is None:
+                self._tree.expect(self.current)
         self.current = update_fn(self.current, a, b, Qa, Qb)
         self.end_chunk(chunk_idx)
 
     def end_chunk(self, chunk_idx: int) -> None:
         self._in_group += 1
+        self._last_chunk = chunk_idx
         nxt = chunk_idx + 1
         if nxt == self.n_chunks:
             self._push_current(more=False)
@@ -264,10 +315,50 @@ class SegmentedAccumulator:
             self._push_current(more=False)
 
     def _push_current(self, more: bool) -> None:
-        self._tree.push(self.current, more)
+        if self.sink is not None:
+            self.sink(self._last_chunk // self.group_chunks, self.current)
+        else:
+            self._tree.push(self.current, more)
         self.current = None
         self.groups_done += 1
         self._in_group = 0
+
+    def resume_group(self, current: Stats, next_chunk: int) -> None:
+        """Continue an open group from a cursor (a sink-mode worker's):
+        ``current`` holds its chunks before ``next_chunk``."""
+        self.current = current
+        self._in_group = next_chunk % self.group_chunks
+        self._last_chunk = next_chunk - 1
+
+    def push_group(self, group_idx: int, stats: Stats) -> None:
+        """Feed a merge group's sum computed elsewhere (a cluster partial),
+        in ascending group order with no gaps."""
+        self.push_group_span(group_idx, stats, 1)
+
+    def push_group_span(self, group_idx: int, stats: Stats, span: int) -> None:
+        """Feed the pairwise sum of ``span`` consecutive merge groups from
+        ``group_idx`` (a worker-combined partial).  ``span`` is a power of
+        two and the span aligned (``group_idx % span == 0``), so it is one
+        subtree of the canonical reduction and merges bitwise as its groups
+        pushed one by one; spans arrive in ascending group order with no
+        gaps.  The entry is copied into the stack's host buffers."""
+        if group_idx != self.groups_done:
+            raise ValueError(f"merge groups must arrive in order: got {group_idx}, "
+                             f"expected {self.groups_done}")
+        _check_span(span)
+        if group_idx % span:
+            raise ValueError(f"span of {span} groups at {group_idx} is unaligned — not a "
+                             "subtree of the canonical reduction")
+        if self.n_chunks is not None and group_idx + span > self.n_groups:
+            raise ValueError(f"span [{group_idx}, {group_idx + span}) overruns the "
+                             f"{self.n_groups}-group pass")
+        more = self.n_chunks is None or group_idx + span < self.n_groups
+        self._tree.push_span(stats, span, more)
+        self.groups_done += span
+
+    def close(self) -> None:
+        """Close the stack (:meth:`PairwiseStack.close`)."""
+        self._tree.close()
 
     @property
     def host_seconds(self) -> float:
@@ -327,3 +418,83 @@ class SegmentedAccumulator:
             acc._tree.counts = PairwiseStack.counts_after(acc.groups_done)
             acc._tree.stack = [meta] * len(acc._tree.counts)
         return acc
+
+
+class SpanCombiner:
+    """Combiner on the way out of a cluster worker: pre-merge its runs of
+    consecutive merge groups into aligned dyadic spans before publishing.
+
+    ``emit(g, stats)`` takes the worker's closed groups in order; a run
+    starting at a multiple of ``span`` is pushed through a local
+    :class:`PairwiseStack` and leaves as ``sink(g0, count, merged)`` once
+    ``span`` groups are in, or when the run breaks (the worker jumped to
+    its next run, or :meth:`flush` at the end of its stream).  The local
+    stack is the canonical binary-counter reduction, so each entry it
+    leaves is one subtree of the coordinator's tree: an aligned run of 5
+    groups leaves as spans of 4 + 1, bitwise the 5 groups merged
+    downstream.  A group that starts a run unaligned (a repair worker's
+    group list) passes through as a span of 1.  The local stack merges in
+    host memory; :meth:`close` releases it.
+    """
+
+    def __init__(self, span: int, sink: Callable[[int, int, Stats], None]):
+        if span < 1 or span & (span - 1):
+            raise ValueError(f"combine span must be a power of two, got {span}")
+        self.span = int(span)
+        self.sink = sink
+        self._g0: Optional[int] = None  # run start (aligned)
+        self._count = 0
+        self._tree: Optional[PairwiseStack] = None
+
+    def emit(self, g: int, stats: Stats) -> None:
+        if self._g0 is not None and g != self._g0 + self._count:
+            self.flush()  # the run broke: the worker jumped to its next run
+        if self._g0 is None:
+            if self.span == 1 or g % self.span:
+                self.sink(g, 1, stats)  # an unaligned start: no combining
+                return
+            self._g0 = g
+            self._tree = PairwiseStack()
+        self._count += 1
+        self._tree.push(stats, more=self._count < self.span)
+        if self._count == self.span:
+            self.flush()
+
+    def flush(self) -> None:
+        """Publish what is buffered: after ``count`` pushes the local
+        stack's entries mirror count's binary digits, each an aligned
+        dyadic block (the run starts at a multiple of ``span``)."""
+        if self._g0 is None:
+            return
+        tree, g = self._tree, self._g0
+        self._g0, self._count, self._tree = None, 0, None
+        try:
+            entries = tree.snapshot()
+            for entry, weight in zip(entries, tree.counts):
+                self.sink(g, weight, entry)
+                g += weight
+        finally:
+            tree.close()
+
+    def close(self) -> None:
+        """Drop a run that was never flushed (an error path)."""
+        if self._tree is not None:
+            self._tree.close()
+        self._g0, self._count, self._tree = None, 0, None
+
+
+def reduce_group_partials(partials: Mapping[int, Stats], init_fn: Callable[[], Stats],
+                          n_chunks: int, group_chunks: int = MERGE_GROUP_CHUNKS) -> Stats:
+    """The canonical tree over an in-memory set of per-group partials
+    (group index → stats, every group present): bitwise the single-process
+    accumulation whichever worker made which group and in what order they
+    came.  The cluster coordinator streams the same tree from disk."""
+    acc = SegmentedAccumulator(init_fn, n_chunks, group_chunks)
+    try:
+        for g in range(acc.n_groups):
+            if g not in partials:
+                raise ValueError(f"merge group {g} missing from partial set")
+            acc.push_group(g, partials[g])
+        return acc.result()
+    finally:
+        acc.close()

@@ -10,11 +10,12 @@ Port of ``repro/exec/engine.py`` for the Local topology:
 - :class:`StackedChunks` — random access over stacked in-memory chunks;
 - :class:`PassEngine` — owns the schedule, the accumulators, the
   per-pass transitions and resume from a pass cursor;
-- :func:`fit` — the entry point over a view store
-  (:class:`~repro_torch.store.PassRunner`).
+- :func:`fit` — the entry point over a view store: the Local topology
+  (:class:`~repro_torch.store.PassRunner`) or the Cluster topology
+  (:class:`~repro_torch.cluster.ClusterCoordinator`).
 
-The streaming ``Sharded``, ``Cluster`` and ``Hybrid`` topologies and the
-mesh fold are not ported yet (ROADMAP Queue 1 item 3).
+The streaming ``Sharded`` and the ``Hybrid`` topologies and the mesh
+fold are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -288,24 +289,46 @@ class PassEngine:
 def fit(store, cfg, seed: Optional[int] = None, *, Qa=None, Qb=None, topology=None,
         engine: Optional[str] = None, merge_group: int = MERGE_GROUP_CHUNKS,
         omega: str = "materialized", prefetch=2, ckpt_dir: Optional[str] = None,
-        resume: bool = False, device=DEFAULT_DEVICE):
+        resume: bool = False, cluster_dir: Optional[str] = None, device=DEFAULT_DEVICE,
+        **cluster_kwargs):
     """Fit RandomizedCCA over a view store (a ``ViewStoreReader`` or a
-    path/URI) from Ω = (Qa, Qb) or ``seed``.  The ``Local`` topology (the
-    default) runs the prefetching, cursor-checkpointed
-    :class:`~repro_torch.store.PassRunner`; the streaming ``Sharded``,
-    ``Cluster`` and ``Hybrid`` topologies are not ported yet."""
+    path/URI) from Ω = (Qa, Qb) or ``seed``.
+
+    ``Local`` (the default) runs the prefetching, cursor-checkpointed
+    :class:`~repro_torch.store.PassRunner`; ``Cluster`` the multi-process
+    :class:`~repro_torch.cluster.ClusterCoordinator` (``cluster_dir``
+    required, further keyword arguments forwarded to it; ``prefetch`` is
+    each worker's, 2 under ``"auto"``), bitwise the Local fit.  The
+    streaming ``Sharded`` and the ``Hybrid`` topologies are not ported
+    yet."""
     from ..core.rcca import DEFAULT_ENGINE
     from ..store import PassRunner
-    from .topology import Local
+    from .topology import Cluster, Local, as_topology
 
-    if topology is not None and not isinstance(topology, Local) and topology != "local":
-        name = topology if isinstance(topology, str) else type(topology).__name__.lower()
+    topo = Local() if topology is None else as_topology(topology)
+    engine = DEFAULT_ENGINE if engine is None else engine
+    if isinstance(topo, Cluster):
+        from ..cluster import ClusterCoordinator
+
+        if cluster_dir is None:
+            raise ValueError("the cluster topology needs cluster_dir= (the shared rounds, "
+                             "partials, cursors, heartbeats and logs directory)")
+        if ckpt_dir is not None or resume:
+            raise ValueError("ckpt_dir and resume are the Local fit's cursors; cluster workers "
+                             "keep theirs under cluster_dir")
+        coord = ClusterCoordinator(store, cfg, cluster_dir, n_workers=topo.n_workers,
+                                   engine=engine, merge_group=merge_group, omega=omega,
+                                   prefetch=prefetch if isinstance(prefetch, int) else 2,
+                                   device=device, **cluster_kwargs)
+        return coord.fit(seed, Qa, Qb)
+    if not isinstance(topo, Local):
         raise NotImplementedError(
-            f"the {name} topology over a store is not ported yet (ROADMAP Queue 1 item 3: "
-            "the streaming Sharded, Cluster and Hybrid topologies); use the Local topology")
-    runner = PassRunner(store, cfg, engine=DEFAULT_ENGINE if engine is None else engine,
-                        prefetch=prefetch, ckpt_dir=ckpt_dir, merge_group=merge_group,
-                        omega=omega, device=device)
+            f"the {topo.name} topology over a store is not ported yet (ROADMAP Queue 1 item 3: "
+            "the streaming Sharded and the Hybrid topologies); use Local or Cluster")
+    if cluster_kwargs:
+        raise TypeError(f"unexpected arguments for the Local topology: {sorted(cluster_kwargs)}")
+    runner = PassRunner(store, cfg, engine=engine, prefetch=prefetch, ckpt_dir=ckpt_dir,
+                        merge_group=merge_group, omega=omega, device=device)
     try:
         return runner.fit(Qa, Qb, seed=seed, resume=resume)
     finally:

@@ -17,6 +17,8 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
     # kill it mid-pass, then:
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
         --data /tmp/s --ckpt-dir /tmp/c --resume
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --ingest --topology cluster --workers 2
 
 Port of ``repro/launch/cca_fit.py``, modes ``stream`` (the port's
 default; the reference defaults to ``dist``) and ``dist``.  Stream is the
@@ -35,6 +37,15 @@ compute dtype), after checking the target's free disk space.
 continues a killed fit from the latest one, bit for bit.  Each pass
 prints its IO line: read and stall seconds, rows/s, GB read, prefetch
 depth.
+
+``--topology cluster`` (or ``--workers N``) fits the store across ``N``
+worker processes (default 2) through the cluster coordinator
+(:mod:`repro_torch.cluster`), with its rounds, partials, cursors,
+heartbeats and logs under ``--cluster-dir`` (default ``<store>.cluster``):
+bitwise the Local (``--topology local``, the default) store fit.  Each
+pass prints its publish, barrier, merge and boundary seconds, the bytes
+of its round, partials and cursors, the launches summed over its workers,
+and each worker's device, groups, seconds and peak memory.
 
 ``--mode stream``: rows are made on the device chunk by chunk
 (:class:`~repro_torch.data.DevicePlantedChunks`) and streamed through
@@ -118,6 +129,7 @@ class FitReport(NamedTuple):
     pass_schedules: list  # schedule the kernels resolved in each pass (None:
                           # torch engine)
     io: Optional[dict] = None  # a store-backed fit's diagnostics["io"]
+    cluster: Optional[dict] = None  # a cluster fit's diagnostics["cluster"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -171,7 +183,8 @@ def ingest(path: str, wl: CCAWorkload, *, seed: int = 0, n_chunks: Optional[int]
 def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         seed: int = 0, n_chunks: int | None = None, omega: str = "materialized",
         store=None, prefetch=2, ckpt_dir: Optional[str] = None,
-        resume: bool = False) -> FitReport:
+        resume: bool = False, workers: int = 0,
+        cluster_dir: Optional[str] = None) -> FitReport:
     """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks,
     Ω from ``seed`` under ``omega``, rows and Ω in ``wl.rcca.dtype``.
     Pass 0's interval includes making Ω (the seeded-materialized mode's
@@ -179,11 +192,30 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
 
     With ``store`` (a ``ViewStoreReader``) the rows come from it through
     a :class:`~repro_torch.store.PassRunner` (``prefetch``, cursors in
-    ``ckpt_dir``, ``resume``), and n is the store's."""
+    ``ckpt_dir``, ``resume``), and n is the store's.  With ``workers`` as
+    well, the store is fitted by the cluster coordinator across that many
+    worker processes (cluster directory ``cluster_dir``): a pass's seconds
+    are its wall time, boundary included, its launches those summed over
+    its workers."""
+    from ..exec import Cluster
+    from ..exec import fit as exec_fit
     from ..store import PassRunner
 
     dev = resolve_device(device)
     cfg = wl.rcca
+    if workers:
+        if store is None or cluster_dir is None:
+            raise ValueError("a cluster fit needs a store and a cluster directory")
+        res = exec_fit(store, cfg, seed, topology=Cluster(workers), engine=engine,
+                       omega=omega, prefetch=prefetch, cluster_dir=cluster_dir, device=dev)
+        cl = res.diagnostics["cluster"]
+        passes = cl["passes"]
+        return FitReport(res, store.n, store.n_chunks,
+                         [p["wall_s"] + p["boundary_s"] for p in passes],
+                         [p["launches"] for p in passes],
+                         [(p["merge_fan_in"], p["merge_s"]) for p in passes],
+                         [p["workers"][0].get("schedule") if p["workers"] else None
+                          for p in passes], cluster=cl)
     data = planted(wl, seed=seed, n_chunks=n_chunks, device=dev) if store is None else None
     pass_seconds, pass_launches, pass_groups = [], [], []
     _sync(dev)
@@ -228,6 +260,18 @@ class RankSpec:
     device: str
     gather: bool
     compute_dtype: str
+
+
+@dataclasses.dataclass(frozen=True)
+class DistRun:
+    """One fit of a dist-mode job: its mesh (pod, data, model), engine,
+    collective, microbatch and compute dtype."""
+
+    mesh_shape: tuple
+    engine: str = DEFAULT_ENGINE
+    collective: str = "fused"
+    microbatch: Optional[int] = None
+    compute_dtype: str = "float32"
 
 
 class DistReport(NamedTuple):
@@ -281,29 +325,39 @@ def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
     return A_l, B_l, Qa_l, Qb_l
 
 
-def dist_rank(mesh, spec: RankSpec) -> dict:
+def dist_rank(mesh, spec: RankSpec, job: Optional[dict] = None) -> dict:
     """One rank of a dist-mode fit: make its blocks (ranks one at a time,
     behind barriers), fit, and report its compute dtype, pass times,
-    launches, seconds in all-reduces, peak device memory, ρ, λ and a
-    digest of its rows of Xa and Xb (and, when ``spec.gather``, the whole
-    Xa and Xb)."""
+    launches, seconds in all-reduces, peak device memory (data generation
+    included when this fit made the blocks), ρ, λ and a digest of its rows
+    of Xa and Xb (and, when ``spec.gather``, the whole Xa and Xb).
+
+    ``job`` (``ranks.JobState``) keeps the blocks for the job's next fit:
+    one on the same workload, rows, Ω, mesh and device reuses them."""
     dev = resolve_device(spec.device)
     row_axes, col_axis = data_axes(mesh), model_axis(mesh)
     world = math.prod(mesh.shape.values())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for r in range(world):  # one whole view at a time on a shared card
-        if r == mesh.rank:
-            A_l, B_l, Qa_l, Qb_l = _local_data(mesh, spec, row_axes, col_axis, dev)
-            _sync(dev)
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        if world > 1:
-            dist.barrier()
+    job = {} if job is None else job
+    key = (spec.wl, spec.n, spec.seed, tuple(mesh.shape.items()), mesh.rank, spec.device)
+    if job.get("key") != key:
+        job.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for r in range(world):  # one whole view at a time on a shared card
+            if r == mesh.rank:
+                job.update(key=key, data=_local_data(mesh, spec, row_axes, col_axis, dev))
+                _sync(dev)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            if world > 1:
+                dist.barrier()
+    A_l, B_l, Qa_l, Qb_l = job["data"]
     kops.reset_launch_counts()
     pass_seconds, pass_launches, pass_collective = [], [], []
     _sync(dev)
-    marks = {"t": time.perf_counter(), "launches": {}, "coll": 0.0}
+    marks = {"t": time.perf_counter(), "launches": {}, "coll": mesh.collective_seconds}
 
     def on_pass_complete(pass_idx, kind):
         _sync(dev)
@@ -360,29 +414,47 @@ def fit_dist(wl: CCAWorkload, *, n_ranks: int, mesh_shape=None, engine: str = DE
     n cut to ``n_chunks`` chunks, Ω from ``seed``, the passes' products in
     ``compute_dtype`` (a key of :data:`COMPUTE_DTYPES`).  Builds the
     kernels first when they will run; any rank's failure raises here."""
-    dev = resolve_device(device)
     shape = tuple(mesh_shape) if mesh_shape is not None else host_mesh_shape(n_ranks)
-    if math.prod(shape) != n_ranks:
-        raise ValueError(f"mesh {shape} does not hold {n_ranks} ranks")
-    if collective not in COLLECTIVES:
-        raise ValueError(f"unknown collective {collective!r}")
-    if compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"unknown compute dtype {compute_dtype!r}")
+    run = DistRun(shape, engine, collective, microbatch, compute_dtype)
+    return fit_dist_runs(wl, [run], n_ranks=n_ranks, device=device, seed=seed,
+                         n_chunks=n_chunks, gather=gather, timeout=timeout)[0]
+
+
+def fit_dist_runs(wl: CCAWorkload, runs, *, n_ranks: int, device=DEFAULT_DEVICE, seed: int = 0,
+                  n_chunks: Optional[int] = None, gather: bool = False,
+                  timeout: float = 1800.0) -> list:
+    """Several dist-mode fits of ``wl`` (:class:`DistRun` each, every mesh
+    of ``n_ranks`` ranks) in order on ONE job of rank processes: one
+    spawn and rendezvous, and the ranks' rows and Ω made once for the fits
+    that share a mesh (the compute dtype casts them inside the fit).
+    Returns one :class:`DistReport` per run."""
+    dev = resolve_device(device)
+    for run in runs:
+        if math.prod(run.mesh_shape) != n_ranks:
+            raise ValueError(f"mesh {run.mesh_shape} does not hold {n_ranks} ranks")
+        if run.collective not in COLLECTIVES:
+            raise ValueError(f"unknown collective {run.collective!r}")
+        if run.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute dtype {run.compute_dtype!r}")
     n = wl.n if n_chunks is None else min(wl.n, n_chunks * wl.chunk)
-    if dev.type == "cuda" and engine == "kernels":
+    if dev.type == "cuda" and any(run.engine == "kernels" for run in runs):
         build.build()  # the ranks load what the parent built
     backend, devices = _placement(n_ranks, dev)
-    specs = [RankSpec(wl, n, seed, engine, collective, microbatch, d, gather, compute_dtype)
-             for d in devices]
-    (reports,) = ranks.run([ranks.Call(dist_rank, [(ranks.OnMesh(shape), s) for s in specs])],
-                           n_ranks, backend=backend, devices=devices, timeout=timeout)
-    r0 = reports[0]
-    Xa, Xb = (torch.from_numpy(r0[k]).to(dev) if k in r0 else None for k in ("Xa", "Xb"))
-    res = RCCAResult(Xa=Xa, Xb=Xb, rho=torch.from_numpy(r0["rho"]),
-                     Qa=None, Qb=None,
-                     diagnostics={"lam_a": r0["lam_a"], "lam_b": r0["lam_b"], "n": r0["n"]})
-    return DistReport(res, n, dict(zip(("pod", "data", "model"), shape)), backend, devices,
-                      reports)
+    calls = [ranks.Call(dist_rank, [(ranks.OnMesh(tuple(run.mesh_shape)),
+                                     RankSpec(wl, n, seed, run.engine, run.collective,
+                                              run.microbatch, d, gather, run.compute_dtype),
+                                     ranks.JobState())
+                                    for d in devices]) for run in runs]
+    per_call = ranks.run(calls, n_ranks, backend=backend, devices=devices, timeout=timeout)
+    out = []
+    for run, reports in zip(runs, per_call):
+        r0 = reports[0]
+        Xa, Xb = (torch.from_numpy(r0[k]).to(dev) if k in r0 else None for k in ("Xa", "Xb"))
+        res = RCCAResult(Xa=Xa, Xb=Xb, rho=torch.from_numpy(r0["rho"]), Qa=None, Qb=None,
+                         diagnostics={"lam_a": r0["lam_a"], "lam_b": r0["lam_b"], "n": r0["n"]})
+        out.append(DistReport(res, n, dict(zip(("pod", "data", "model"), run.mesh_shape)),
+                              backend, devices, reports))
+    return out
 
 
 def evaluate(rep: FitReport, wl: CCAWorkload, *, seed: int = 0,
@@ -431,6 +503,24 @@ def print_io(io: dict, first_pass: int = 0) -> None:
     if c is not None:
         print(f"[cca] resumed from the cursor at pass {c['pass_idx']} chunk {c['next_chunk']}: "
               f"{c['bytes'] / 1e9:.3f} GB restored in {c['restore_s']:.3f} s")
+
+
+def print_cluster(cl: dict) -> None:
+    """A cluster fit's passes, one line each, then one line per worker."""
+    for i, p in enumerate(cl["passes"]):
+        print(f"[cca] pass {i} cluster: wall {p['wall_s']:.3f} s (publish {p['publish_s']:.3f}, "
+              f"barrier {p['barrier_s']:.3f}, merge {p['merge_s']:.3f}), boundary "
+              f"{p['boundary_s']:.3f} s; round {p['round_bytes'] / 1e9:.3f} GB, partials "
+              f"{p['partial_bytes'] / 1e9:.3f} GB ({p['merge_fan_in']} merged), cursors "
+              f"{p['cursor_bytes'] / 1e9:.3f} GB; launches over the workers {p['launches']}; "
+              f"workers spawned {p['workers_spawned']}, groups re-dispatched "
+              f"{p['redispatched_groups']}, stale heartbeats {p['stale_heartbeat_shards']}")
+        for w in p["workers"]:
+            peak = "not on a card" if w.get("peak_gb") is None else f"{w['peak_gb']:.2f} GB"
+            print(f"[cca] pass {i} worker {w['shard']} on {w['device']}: groups {w['groups']}, "
+                  f"{w['chunks']} chunks in {w['seconds']:.3f} s, schedule {w['schedule']}, "
+                  f"read {w['io']['read_s']:.3f} s, stall {w['io']['io_stall_s']:.3f} s, "
+                  f"peak device memory {peak}, largest host RSS {w['rss_peak_gb']:.2f} GB")
 
 
 def main(argv=None):
@@ -491,6 +581,16 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="continue a killed store-backed fit from the latest cursor in "
                          "--ckpt-dir")
+    ap.add_argument("--topology", default=None, choices=["local", "cluster"],
+                    help="execution topology of a store-backed fit: local = one process "
+                         "(default), cluster = worker processes (needs --data; bitwise the "
+                         "local fit)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="fit the store across N worker processes through the cluster "
+                         "coordinator (needs --data; default 2 under --topology cluster)")
+    ap.add_argument("--cluster-dir", default=None,
+                    help="the cluster's rounds, partials, cursors, heartbeats and logs "
+                         "(default <store>.cluster)")
     args = ap.parse_args(argv)
     prefetch = args.prefetch if args.prefetch == "auto" else int(args.prefetch)
 
@@ -507,6 +607,18 @@ def main(argv=None):
                          "is not ported yet (ROADMAP Queue 1 item 3)")
     if not args.data and (args.ingest or args.ckpt_dir or args.resume):
         raise SystemExit("--ingest, --ckpt-dir and --resume need a store: pass --data")
+    if args.topology is None and args.workers:
+        args.topology = "cluster"
+    cluster = args.topology == "cluster"
+    if cluster and not args.data:
+        raise SystemExit("--topology cluster needs an on-disk store: pass --data (the cluster "
+                         "cuts a view store into merge groups)")
+    if args.workers and not args.data:
+        raise SystemExit("--workers needs an on-disk store: pass --data (the cluster "
+                         "coordinator shards a view store)")
+    if cluster and (args.ckpt_dir or args.resume):
+        raise SystemExit("--ckpt-dir and --resume are the local fit's cursors; cluster "
+                         "workers keep theirs under --cluster-dir")
     reader = None
     if args.data:
         from ..store import ViewStoreReader, store_exists
@@ -548,6 +660,23 @@ def main(argv=None):
               f"n={rep.n} da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q} "
               f"microbatch={args.microbatch}")
         _print_dist(rep, cfg)
+    elif cluster:
+        workers = args.workers or 2
+        cluster_dir = args.cluster_dir or args.data.rstrip("/") + ".cluster"
+        if prefetch == "auto":
+            print("[cca] --prefetch auto is a one-process calibration; cluster workers use "
+                  "depth 2")
+            prefetch = 2
+        rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
+                  omega=args.omega, store=reader, prefetch=prefetch, workers=workers,
+                  cluster_dir=cluster_dir)
+        dt = time.perf_counter() - t0
+        print(f"[cca] cluster topology, engine={args.engine}, omega={args.omega}, "
+              f"compute_dtype={args.compute_dtype}, device={args.device}, workers={workers}, "
+              f"n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}, {rep.cluster['n_groups']} "
+              f"merge groups) da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}, "
+              f"cluster_dir={cluster_dir}")
+        print_cluster(rep.cluster)
     else:
         rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
                   n_chunks=args.n_chunks, omega=args.omega, store=reader,
@@ -571,7 +700,7 @@ def main(argv=None):
     rho = rep.result.rho.double().cpu()
     print(f"[cca] done in {dt:.1f}s; sum rho = {float(rho.sum()):.4f}; "
           f"top-5 rho = {[round(float(r), 6) for r in rho[:5]]}")
-    if args.mode == "stream" and torch.device(args.device).type == "cuda":
+    if args.mode == "stream" and not cluster and torch.device(args.device).type == "cuda":
         rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         print(f"[cca] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
               f"peak host RSS {rss_kib * 1024 / 1e9:.2f} GB (closed merge groups live there)")

@@ -6,7 +6,8 @@ through a ``FileStore`` in a new temporary directory (never a fixed TCP
 port, so jobs started side by side do not meet), runs a list of calls on
 every rank, and returns what each rank returned.  A :class:`OnMesh`
 argument stands for the :class:`~repro_torch.launch.mesh.Mesh` of that
-shape on the rank that runs the call.
+shape on the rank that runs the call, and a :class:`JobState` for a dict
+that the rank keeps across the job's calls.
 
 A rank that raises fails the job: the parent raises with that rank's
 traceback and kills the others.  So does a rank that dies, and the job
@@ -47,6 +48,12 @@ class OnMesh:
 
 
 @dataclasses.dataclass(frozen=True)
+class JobState:
+    """In a call's arguments: a dict that the rank running the call keeps
+    for the job's later calls (data made once for several fits)."""
+
+
+@dataclasses.dataclass(frozen=True)
 class Call:
     """``fn(*args[rank], **kwargs)`` on every rank."""
 
@@ -71,8 +78,11 @@ def _to_host(x):
 def _rank_main(rank: int, world: int, job_dir: str, backend: str, device: str,
                timeout: float, out) -> None:
     meshes: dict = {}
+    state: dict = {}
 
     def resolve(v):
+        if isinstance(v, JobState):
+            return state
         if isinstance(v, OnMesh):
             key = (tuple(v.shape), tuple(v.axes))
             if key not in meshes:

@@ -71,26 +71,31 @@ def _host_free_bytes() -> int:
 
 
 def residency(reader: ViewStoreReader, cfg: RCCAConfig, device: torch.device,
-              depth: int) -> dict:
+              depth: int, share: int = 1) -> dict:
     """The prefetch residency rule of a fit on a card, computed up front.
 
     Device look-ahead (a second chunk pair on the card, copied during the
     fold of the first) only where two pairs plus the pass state fit in
-    the card's memory; the pass state is Q, the open group's f32 stats
-    and one (d, k̃) workspace per view (the torch engine's ΔY).  At
-    Europarl width and 8192-row chunks a pair is 34.4 GB and the state
+    this process's part of the card: what the card has free when the
+    rule is computed, plus what this process's allocator already holds,
+    divided by ``share``, the processes that fold on the card side by
+    side (a cluster's workers).  The pass state is Q, the open group's
+    f32 stats and one (d, k̃) workspace per view (the torch engine's ΔY).
+    At Europarl width and 8192-row chunks a pair is 34.4 GB and the state
     25.9 GB, so the copy waits for the fold's release; the disk reads
-    still overlap it.  Host slots: ``depth`` page-locked pairs, as many
-    as fit in half the host's free memory (at least one)."""
+    still overlap it.  Host slots: ``depth`` page-locked pairs, as many as
+    fit in half the host's free memory (at least one)."""
     item = torch.empty((), dtype=reader.torch_dtype).element_size()
     q_item = torch.empty((), dtype=cfg.dtype).element_size()
     pair = reader.chunk * (reader.da + reader.db) * item
     state = (reader.da + reader.db) * cfg.sketch * (q_item + 4 + 4)
-    card = torch.cuda.get_device_properties(device).total_memory
+    free, total = torch.cuda.mem_get_info(device)
+    card = (free + torch.cuda.memory_reserved(device)) / max(1, share)
     host = _host_free_bytes()
     want = max(1, depth)
     slots = max(1, min(want, host // 2 // pair))
     return {"pair_gb": pair / 1e9, "state_gb": state / 1e9, "card_gb": card / 1e9,
+            "card_total_gb": total / 1e9, "share": max(1, share),
             "lookahead": 2 * pair + state <= card, "host_free_gb": host / 1e9,
             "host_slots": slots, "host_slots_wanted": want}
 
@@ -99,9 +104,11 @@ def residency_line(rule: dict) -> str:
     need = 2 * rule["pair_gb"] + rule["state_gb"]
     ahead = ("device look-ahead of one chunk pair" if rule["lookahead"] else
              "no device look-ahead (a chunk's copy waits for the fold before it)")
+    part = "" if rule["share"] == 1 else f" (1/{rule['share']} of the free memory)"
     return (f"[store] residency: chunk pair {rule['pair_gb']:.2f} GB, pass state "
             f"{rule['state_gb']:.2f} GB; 2 pairs + state = {need:.2f} GB "
-            f"{'<=' if rule['lookahead'] else '>'} card {rule['card_gb']:.2f} GB: {ahead}; "
+            f"{'<=' if rule['lookahead'] else '>'} card {rule['card_gb']:.2f} GB{part} of "
+            f"{rule['card_total_gb']:.2f}: {ahead}; "
             f"host slots {rule['host_slots']} of {rule['host_slots_wanted']} wanted "
             f"({rule['host_free_gb']:.2f} GB host memory free)")
 

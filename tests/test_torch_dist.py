@@ -52,7 +52,7 @@ from repro_torch.core import rcca as tr
 from repro_torch.core import rcca_dist as td
 from repro_torch.core.linalg import orth
 from repro_torch.data import PlantedCCAData
-from repro_torch.exec import Local, Sharded, as_topology
+from repro_torch.exec import Cluster, Local, Sharded, as_topology
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import plan, rand
 from repro_torch.launch import cca_fit, ranks
@@ -371,7 +371,8 @@ def test_topologies():
     assert isinstance(sharded, Sharded) and sharded.col_axis == "model"
     assert as_topology(sharded) is sharded
     with pytest.raises(ValueError):
-        as_topology("cluster")
+        as_topology("mesh")
+    assert as_topology("cluster") == Cluster()  # ported: tests/test_torch_cluster.py
     rng = np.random.default_rng(2)
     A, B = rng.standard_normal((N, DA)), rng.standard_normal((N, DB))
     Qa, Qb = rng.standard_normal((DA, KT)), rng.standard_normal((DB, KT))
@@ -384,6 +385,30 @@ def test_topologies():
         td.dist_randomized_cca(A, B, _cfg(), Qa, Qb, topology=Sharded(), device="cpu")
     with pytest.raises(ValueError):
         td.dist_randomized_cca(A, B, _cfg(), Qa, Qb, device="cpu")
+
+
+def test_fits_on_one_job_are_the_fits_on_their_own():
+    """``fit_dist_runs``: several fits on one job of ranks, the rows and Ω
+    made once per mesh, each bitwise the same fit on a job of its own
+    (ρ, each rank's Xa/Xb digests and launches), in f32 and bf16 and on a
+    second mesh."""
+    from repro_torch.configs.europarl_cca import smoke_config
+
+    wl = smoke_config()
+    runs = [cca_fit.DistRun((1, 2, 2), collective="unfused"),
+            cca_fit.DistRun((1, 2, 2), compute_dtype="bfloat16"),
+            cca_fit.DistRun((1, 4, 1))]
+    job = cca_fit.fit_dist_runs(wl, runs, n_ranks=4, device="cpu", gather=True)
+    for run, rep in zip(runs, job):
+        alone = cca_fit.fit_dist(wl, n_ranks=4, mesh_shape=run.mesh_shape,
+                                 collective=run.collective, compute_dtype=run.compute_dtype,
+                                 device="cpu", gather=True)
+        assert rep.mesh == alone.mesh
+        np.testing.assert_array_equal(rep.result.rho.numpy(), alone.result.rho.numpy())
+        assert [(r["digest"], r["pass_launches"]) for r in rep.ranks] == \
+            [(r["digest"], r["pass_launches"]) for r in alone.ranks]
+    with pytest.raises(ValueError, match="does not hold"):
+        cca_fit.fit_dist_runs(wl, [cca_fit.DistRun((1, 2, 2))], n_ranks=2, device="cpu")
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 16, 32])

@@ -495,9 +495,11 @@ def test_exec_fit_runs_local_and_refuses_other_topologies(fit_store):
     a = fit(reader.path, cfg, 2, device="cpu")
     b = fit(reader, cfg, 2, topology=Local(), prefetch=0, device="cpu")
     assert torch.equal(a.rho, b.rho)
-    for topo in (Sharded(), "sharded", "cluster", "hybrid"):
+    for topo in (Sharded(), "sharded", "hybrid"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             fit(reader, cfg, 2, topology=topo, device="cpu")
+    with pytest.raises(ValueError, match="cluster_dir"):  # the Cluster topology is ported
+        fit(reader, cfg, 2, topology="cluster", device="cpu")
 
 
 def test_open_source_seeks_by_name_and_n_full_chunks(fit_store, corpus, store):
