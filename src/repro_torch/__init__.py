@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of the RandomizedCCA reproduction.
 
 Mirrors the subpackages of the JAX package ``repro`` (``core``, ``exec``,
-``kernels``, ``data``, ``configs``, ``launch``), so each module here has
-one reference module there.  The port imports neither ``jax`` nor
+``kernels``, ``data``, ``configs``, ``store``, ``ckpt``, ``cluster``,
+``serve``, ``launch``), so each module here has one reference module
+there.  The port imports neither ``jax`` nor
 ``repro``; only the tests hold the two packages against each other.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``: the

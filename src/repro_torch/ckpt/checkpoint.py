@@ -72,9 +72,11 @@ def unflatten(like, flat: Mapping[str, Any], prefix: str = ""):
     return flat[prefix]
 
 
-def save_pytree(tree, directory: str, *, metadata: Optional[dict] = None) -> int:
+def save_pytree(tree, directory: str, *, metadata=None) -> int:
     """Write ``tree``'s tensors (any device) to ``directory`` and publish it
-    atomically; returns the bytes of the leaves."""
+    atomically; returns the bytes of the leaves.  ``metadata`` is a dict,
+    or a callable that returns it once the leaves are written (metadata
+    computed from the leaves while they are written, e.g. a hash)."""
     tmp = directory + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -88,6 +90,8 @@ def save_pytree(tree, directory: str, *, metadata: Optional[dict] = None) -> int
                                  "dtype": logical_name(t.dtype)}
 
     written = [write(key, leaf) for key, leaf in flatten(tree).items()]
+    if callable(metadata):
+        metadata = metadata()
     manifest = {"leaves": {key: info for key, _, info in written}, "metadata": metadata or {}}
     nbytes = sum(n for _, n, _ in written)
     with open(os.path.join(tmp, MANIFEST), "w") as f:

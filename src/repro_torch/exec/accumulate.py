@@ -280,6 +280,11 @@ class SegmentedAccumulator:
     def n_groups(self) -> int:
         return -(-self.n_chunks // self.group_chunks)
 
+    @property
+    def open_chunks(self) -> int:
+        """Chunks folded into the open group (0 at a group boundary)."""
+        return self._in_group
+
     @staticmethod
     def groups_completed(next_chunk: int, n_chunks: Optional[int], group_chunks: int) -> int:
         """Merge groups fully folded once chunks [0, next_chunk) are in;

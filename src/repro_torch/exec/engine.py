@@ -149,14 +149,14 @@ class PassEngine:
             if seed is not None or self.omega != "materialized":
                 raise ValueError("an explicit Ω (Qa, Qb) takes omega='materialized' "
                                  "and no seed")
-            return self._on_device(Qa), self._on_device(Qb)
+            return self.on_device(Qa), self.on_device(Qb)
         if seed is None:
             raise ValueError("pass Ω (Qa, Qb) or an integer seed")
         if self.seeds_in_slots:
             return omega_seeds(seed)
         return init_Q(seed, da, db, self.cfg, omega=self.omega, device=self.device)
 
-    def _boundary_Q(self, Qa, Qb, pass_idx: int, da: int, db: int):
+    def boundary_Q(self, Qa, Qb, pass_idx: int, da: int, db: int):
         """Ω as tensors at a pass boundary where the slots carry seeds and
         what follows needs the arrays (the centering correction, or the
         q = 0 finalize): one ``omega_fill`` per view.  Ya is a (d, k̃)
@@ -170,7 +170,7 @@ class PassEngine:
         return (krand.dense_omega(Qa, da, kt, dt, device=self.device),
                 krand.dense_omega(Qb, db, kt, dt, device=self.device))
 
-    def _on_device(self, x) -> torch.Tensor:
+    def on_device(self, x) -> torch.Tensor:
         """``x`` in ``cfg.dtype`` on the engine's device, row-major (the
         layout the data-pass kernels take)."""
         return torch.as_tensor(x, device=self.device, dtype=self.cfg.dtype).contiguous()
@@ -186,7 +186,7 @@ class PassEngine:
             if chunk_idx < start_chunk:  # a source that cannot seek: skip
                 del ab
             else:
-                pair = (self._on_device(ab[0]), self._on_device(ab[1]))
+                pair = (self.on_device(ab[0]), self.on_device(ab[1]))
                 del ab
                 yield chunk_idx, pair
                 del pair
@@ -219,8 +219,7 @@ class PassEngine:
         ``"recompute"``, ``"a/b"`` when the views differ, None under the
         torch engine).
         """
-        from ..core.rcca import (finalize_result, power_update_Q, seeded_update_fn,
-                                 stats_init_fn, update_fn)
+        from ..core.rcca import finalize_result, power_update_Q, stats_init_fn
 
         cfg = self.cfg
         start_pass, start_chunk, acc_state = 0, 0, None
@@ -241,27 +240,42 @@ class PassEngine:
             if acc_state is not None:
                 acc.load_state(acc_state, self.device)
                 acc_state = None
-            seeded = self.seeds_in_slots and pass_idx == 0
-            fn = seeded_update_fn(kind, cfg.sketch) if seeded else update_fn(kind, self.engine)
-            source, offset = open_source(source_factory, start_chunk)
             cb = None
             if on_pass_end is not None:
                 cb = (lambda ci, acc_, _p=pass_idx, _qa=Qa, _qb=Qb:
                       on_pass_end(_p, ci, acc_, _qa, _qb))
-            run_fold(self._indexed_on_device(source, offset, start_chunk),
-                     self._recording(fn, kind, cfg.sketch, seeded, schedules), acc, Qa, Qb,
-                     on_chunk=cb)
+            self.fold_pass(source_factory, pass_idx, kind, acc, Qa, Qb,
+                           start_chunk=start_chunk, on_chunk=cb, schedules=schedules)
             start_chunk = 0
             if on_pass_complete is not None:
                 on_pass_complete(pass_idx, kind, acc, Qa, Qb)
             if kind == "power":
                 if cfg.center:  # the μ corrections need Ω itself
-                    Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)
+                    Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)
                 Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
-        Qa, Qb = self._boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
+        Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
         res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
         res.diagnostics["schedules"] = schedules
         return res
+
+    def fold_pass(self, source_factory, pass_idx: int, kind: str, acc, Qa, Qb, *,
+                  start_chunk: int = 0, on_chunk=None, schedules: Optional[list] = None):
+        """Fold one pass's chunks from ``start_chunk`` on into ``acc`` with
+        the pass's update (the seeded one on a seeded pass 0): the body of
+        :meth:`run_stream`'s loop, and a delta refit's range fold.
+        ``on_chunk(chunk_idx, acc)`` is :func:`run_fold`'s; the schedule
+        the kernels resolve for the first chunk is appended to
+        ``schedules``."""
+        from ..core.rcca import seeded_update_fn, update_fn
+
+        kt = self.cfg.sketch
+        seeded = self.seeds_in_slots and pass_idx == 0
+        fn = seeded_update_fn(kind, kt) if seeded else update_fn(kind, self.engine)
+        if schedules is not None:
+            fn = self._recording(fn, kind, kt, seeded, schedules)
+        source, offset = open_source(source_factory, start_chunk)
+        return run_fold(self._indexed_on_device(source, offset, start_chunk), fn, acc, Qa, Qb,
+                        on_chunk=on_chunk)
 
     def _recording(self, fn, kind: str, kt: int, seeded: bool, schedules: list):
         """``fn``, appending to ``schedules`` the schedule the kernels

@@ -211,6 +211,8 @@ class PassRunner:
         self.ckpt_every = int(ckpt_every)
         self.calib_chunks = int(calib_chunks)
         self.mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+        self._engine = PassEngine(cfg, engine=self.engine, merge_group=self.merge_group,
+                                  device=self.device, omega=self.omega)
         self.rule: Optional[dict] = None
         self._slots: Optional[HostSlots] = None
         self._live = None
@@ -401,28 +403,25 @@ class PassRunner:
 
     # -- driving ---------------------------------------------------------------
 
-    def fit(self, Qa=None, Qb=None, *, seed: Optional[int] = None, resume: bool = False,
-            on_chunk=None, on_pass_complete=None) -> RCCAResult:
-        """All q+1 passes → :class:`RCCAResult`, from Ω = (Qa, Qb) or
-        ``seed`` under ``omega``.
+    def pass_engine(self) -> PassEngine:
+        """The pass engine of this runner's configuration, engine, merge
+        group, Ω provenance and device (one per runner: its folds, its fits
+        and a delta refit's boundary Ω all go through it)."""
+        return self._engine
 
-        ``resume=True`` continues from the latest cursor in ``ckpt_dir``
-        (a fresh fit when there is none).  ``on_chunk(pass_idx,
-        chunk_idx, acc, Qa, Qb)`` runs after each chunk's fold and BEFORE
-        the periodic cursor save, so a test can kill the fit and the last
-        published cursor stays consistent.  ``on_pass_complete`` is
-        :meth:`PassEngine.run_stream`'s.
-        """
-        self._restored = None
-        resume_state = self.restore_cursor() if resume else None
-        r = self.reader
-        self._io = self._zero_io()
-        self._passes, self._cursors = [], []
+    def _start_rule(self) -> None:
+        """On a card, compute and print the residency rule (once a fit)."""
         if self.device.type == "cuda":
-            self.rule = residency(r, self.cfg, self.device, self.prefetch)
+            self.rule = residency(self.reader, self.cfg, self.device, self.prefetch)
             print(residency_line(self.rule), flush=True)
+
+    def _chunk_callback(self, on_chunk):
+        """The per-chunk callback ``cb(pass_idx, chunk_idx, acc, Qa, Qb)``:
+        the calibration samples while the pipeline is being chosen, else a
+        wait for the card every ``sync_chunks`` chunks (bounding the work
+        queued ahead of it); then ``on_chunk``; then the periodic cursor
+        save (with a ``ckpt_dir``)."""
         counters = {"chunks": 0}
-        t0 = time.perf_counter()
 
         def sync():
             if self.device.type == "cuda":
@@ -446,18 +445,60 @@ class PassRunner:
                 on_chunk(pass_idx, chunk_idx, acc, Qa_, Qb_)
             if self.mgr is not None and (chunk_idx + 1) % self.ckpt_every == 0:
                 self._save_cursor(pass_idx, chunk_idx, acc, Qa_, Qb_)
+        return cb
+
+    def fold(self, pass_idx: int, kind: str, acc, Qa, Qb, *, start: int = 0):
+        """Fold chunks [``start``, n_chunks) of pass ``pass_idx`` into
+        ``acc`` (an accumulator over this store's chunk count, its state
+        at ``start``) through the fit's prefetcher, update function and
+        sync bound: a delta refit's range fold.  Its IO lands in
+        :meth:`io_passes`."""
+        if self.rule is None:
+            self._start_rule()
+        cb = self._chunk_callback(None)
+        try:
+            self.pass_engine().fold_pass(
+                self._source, pass_idx, kind, acc, Qa, Qb, start_chunk=start,
+                on_chunk=lambda ci, acc_: cb(pass_idx, ci, acc_, Qa, Qb))
+        finally:
+            self._harvest_live()
+        return acc
+
+    def io_passes(self) -> list:
+        """Per-fold IO since the last :meth:`fit` (``diagnostics["io"]
+        ["passes"]``'s layout): one entry per pass or :meth:`fold`."""
+        return list(self._passes)
+
+    def fit(self, Qa=None, Qb=None, *, seed: Optional[int] = None, resume: bool = False,
+            on_chunk=None, on_pass_complete=None) -> RCCAResult:
+        """All q+1 passes → :class:`RCCAResult`, from Ω = (Qa, Qb) or
+        ``seed`` under ``omega``.
+
+        ``resume=True`` continues from the latest cursor in ``ckpt_dir``
+        (a fresh fit when there is none).  ``on_chunk(pass_idx,
+        chunk_idx, acc, Qa, Qb)`` runs after each chunk's fold and BEFORE
+        the periodic cursor save, so a test can kill the fit and the last
+        published cursor stays consistent.  ``on_pass_complete`` is
+        :meth:`PassEngine.run_stream`'s.
+        """
+        self._restored = None
+        resume_state = self.restore_cursor() if resume else None
+        r = self.reader
+        self._io = self._zero_io()
+        self._passes, self._cursors = [], []
+        self._start_rule()
+        t0 = time.perf_counter()
+        cb = self._chunk_callback(on_chunk)
 
         def pc(pass_idx, kind, acc, Qa_, Qb_):
             self._harvest_live()
             if on_pass_complete is not None:
                 on_pass_complete(pass_idx, kind, acc, Qa_, Qb_)
 
-        eng = PassEngine(self.cfg, engine=self.engine, merge_group=self.merge_group,
-                         device=self.device, omega=self.omega)
         try:
-            res = eng.run_stream(self._source, r.da, r.db, Qa, Qb, seed=seed,
-                                 resume_state=resume_state, on_pass_end=cb,
-                                 on_pass_complete=pc, n_chunks=r.n_chunks)
+            res = self.pass_engine().run_stream(
+                self._source, r.da, r.db, Qa, Qb, seed=seed, resume_state=resume_state,
+                on_pass_end=cb, on_pass_complete=pc, n_chunks=r.n_chunks)
         finally:
             self._harvest_live()
         wall = time.perf_counter() - t0

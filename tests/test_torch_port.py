@@ -18,8 +18,10 @@ from repro.exec import engine as jengine
 from repro_torch.configs import europarl_cca as tconf
 from repro_torch.core import rcca as tr
 from repro_torch.data import DevicePlantedChunks
-from repro_torch.exec import PassEngine, accumulate as tacc, engine as tengine
-from repro_torch.launch import cca_fit
+from repro_torch.exec import FitState, PassEngine, delta_refit, fit_with_state
+from repro_torch.exec import accumulate as tacc, engine as tengine
+from repro_torch.launch import cca_fit, cca_serve
+from repro_torch.serve import ModelRegistry
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -59,7 +61,7 @@ def no_cuda():
         pytest.skip("checks the behaviour on a host without CUDA")
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     cfg = tr.RCCAConfig(k=2, p=2, q=0)
     A = np.zeros((8, 5), np.float32)
     Q = np.zeros((5, 4), np.float32)
@@ -80,6 +82,17 @@ def test_entry_points_raise_without_cuda(no_cuda):
             tr.stats_init_fn(kind, 5, 5, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cca_fit.main(["--smoke"])
+    # the incremental fit and the serving tier
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_with_state(str(tmp_path / "store"), cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        delta_refit(FitState(meta={}, passes={}), str(tmp_path / "store"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRegistry(str(tmp_path / "registry")).load("m")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cca_serve.main(["--smoke", "--store", str(tmp_path / "store"),
+                        "--registry", str(tmp_path / "registry")])
+    assert not (tmp_path / "store").exists()
 
 
 # --------------------------------------------------------------------------
