@@ -1,6 +1,6 @@
 """Build, load and launch the port's CUDA kernels.
 
-Three sources in ``csrc/``, each compiled at first use by its own
+Four sources in ``csrc/``, each compiled at first use by its own
 ``nvcc`` (all started together) into a shared library with a plain C
 interface, loaded with ``ctypes``:
 
@@ -9,10 +9,12 @@ interface, loaded with ``ctypes``:
   stage's bf16 form and the bf16 generator;
 - ``recompute_f32.cu`` — the fused recompute kernels, f32 and bf16,
   seeded or not;
+- ``gemm_rows.cu`` — the serving projection's split-K product;
 
 on the headers ``gemm_ring.cuh`` (the f32 tile and its pipelined ring:
 the staged f32 products and both phases of the fused f32 kernels, phase 2
-of the fused bf16 ones), ``gemm_bf16.cuh`` (the bf16 tensor-core tile, on
+of the fused bf16 ones; its copies also stage the serving form's
+operands), ``gemm_bf16.cuh`` (the bf16 tensor-core tile, on
 ``wgmma``), ``gemm_bf16_mma.cuh`` (the old ``mma.sync`` tile, kept as a
 witness no entry point launches), ``mode.cuh`` (the tiles' output modes)
 and ``rand.cuh`` (the Ω generator):
@@ -46,7 +48,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: The libraries: name → its one source.
 LIBRARIES = {"gemm_f32": CSRC / "gemm_f32.cu", "gemm_bf16": CSRC / "gemm_bf16.cu",
-             "recompute_f32": CSRC / "recompute_f32.cu"}
+             "recompute_f32": CSRC / "recompute_f32.cu", "gemm_rows": CSRC / "gemm_rows.cu"}
 #: The headers every source may include; each goes into every digest.
 HEADERS = (CSRC / "gemm_bf16.cuh", CSRC / "gemm_bf16_mma.cuh", CSRC / "gemm_ring.cuh",
            CSRC / "mode.cuh", CSRC / "rand.cuh")
@@ -117,10 +119,18 @@ SIGNATURES = {
         # power, int* out
         "recompute_bf16_blocks_per_sm": [_int, _ptr],
     },
+    "gemm_rows": {
+        # x, X, out, partials scratch, M, N, K, rows a slice, tile
+        # (plan.rows_tile), vec (plan.copies), stream
+        "gemm_rows_f32": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _int, _int, _ptr],
+        # tile, int* out
+        "gemm_rows_blocks_per_sm": [_int, _ptr],
+    },
 }
 #: Each library's ``cudaGetErrorString``.
 ERROR_STRINGS = {"gemm_f32": "gemm_error_string", "gemm_bf16": "gemm_bf16_error_string",
-                 "recompute_f32": "recompute_error_string"}
+                 "recompute_f32": "recompute_error_string",
+                 "gemm_rows": "gemm_rows_error_string"}
 _LIB_OF = {fn: lib for lib, fns in SIGNATURES.items() for fn in fns}
 
 #: Launches per Python entry point since the last :func:`reset_launches`.
@@ -218,6 +228,13 @@ def _occupancy(fn: str, *args: int) -> int:
     if rc != 0:
         raise RuntimeError(f"occupancy query {fn} failed with CUDA error {rc}")
     return out.value
+
+
+def rows_blocks_per_sm(tile: int) -> int:
+    """The blocks of the serving form's segment kernel (``gemm_rows.cu``) on
+    ``plan.ROWS_TILES[tile]`` that the card keeps resident on one SM at its
+    ring's shared memory, by the occupancy API."""
+    return _occupancy("gemm_rows_blocks_per_sm", tile)
 
 
 def bf16_blocks_per_sm() -> dict[str, int]:

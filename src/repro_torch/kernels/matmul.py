@@ -1,5 +1,6 @@
 """The GEMM launchers, their operand forms, the plain products
-``matmul_nn`` and ``matmul_tn``, and the schedule crossover.
+``matmul_nn`` and ``matmul_tn``, the serving projection ``project_rows``,
+and the schedule crossover.
 
 ``matmul_tn`` (O = Xᵀ·Y) is the port of ``repro/kernels/matmul.py``
 ``_mm_tn_kernel`` as ``pallas_matmul(transpose_lhs=True)`` launches it;
@@ -14,13 +15,20 @@ block (one ascending FMA chain per element, on the tile
 ``matmul_nn`` is bitwise ``powerpass.proj_stage`` on the same operands
 and counts its launches under its own name.  It is bound by f32
 operations (2·M·K·N FLOPs against 4·(MK + KN + MN) bytes).
-:func:`gemm_nn`, :func:`gemm_nn_seeded`, :func:`gemm_tn` and
-:func:`recompute` are the launchers every GEMM entry point of the package
-goes through (kernel sources: ``csrc/gemm_f32.cu``, ``csrc/gemm_bf16.cu``,
-``csrc/recompute_f32.cu``), each with the :class:`Form` that
-:func:`form` resolves from the entry point and its operands' dtypes
-(:data:`FORMS`).  :func:`pick_schedule` is the port of the reference's
-crossover rule, at the H100's balance point.
+``project_rows`` is the port's own serving kernel (``gemm_rows_f32``,
+``csrc/gemm_rows.cu``; the JAX package serves with XLA's ``x @ X``,
+``repro/serve/projector.py``, which reaches no Pallas kernel): a split-K
+product whose reduction order is fixed
+by K alone, so a row's output does not depend on the batch around it,
+and K spreads over the card when M is a handful of rows.
+:func:`gemm_nn`, :func:`gemm_nn_seeded`, :func:`gemm_tn`,
+:func:`recompute` and :func:`gemm_rows` are the launchers every GEMM entry
+point of the package goes through (kernel sources: ``csrc/gemm_f32.cu``,
+``csrc/gemm_bf16.cu``, ``csrc/recompute_f32.cu``, ``csrc/gemm_rows.cu``),
+each with the :class:`Form` that :func:`form` resolves from the entry
+point and its operands' dtypes (:data:`FORMS`).  :func:`pick_schedule`
+is the port of the reference's crossover rule, at the H100's balance
+point.
 
 A wrapper takes its plain version (:mod:`.ref`) only when its tensors
 lie on the CPU.  For CUDA tensors it launches the kernel or raises.
@@ -89,6 +97,7 @@ FORMS = {
     "power_project_accumulate_seeded": {(f32, f32): "recompute_seeded_f32",
                                         (bf16, bf16): "power_recompute_seeded_bf16"},
     "omega_fill": {(f32,): "omega_fill_f32", (bf16,): "omega_fill_bf16"},
+    "project_rows": {(f32, f32): "gemm_rows_f32"},
 }
 _SHORT = {f32: "f32", bf16: "bf16"}
 #: The C functions that run the f32 ring tile (``csrc/gemm_ring.cuh``) for
@@ -269,6 +278,39 @@ def recompute(f: Form, x: torch.Tensor, q, kt: int, p: torch.Tensor, a2: torch.T
                  p.data_ptr(), slab.data_ptr(), SEEDED_SLAB, a2_ptr, y_ptr, n, kt, d, m2, lda2,
                  int(accumulate), *_ring(f.fn, n, kt, a, b), *_widths(f.fn, a, b), *phase2,
                  _stream(x))
+
+
+def gemm_rows(f: Form, x: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """O = x·X on the card by the serving form's split-K kernel: x (M, K),
+    X (K, N) → (M, N) f32, on the segment tile :func:`~.plan.rows_tile`
+    picks from M (the bits are the same on either), the partials in
+    a scratch allocated here (:func:`~.plan.rows_slice` rows at a time;
+    one C call, two CUDA launches a slice)."""
+    (M, K), N = x.shape, X.shape[1]
+    _grid_ok(f.label, M, N)
+    rows = plan.rows_slice(M, K, N)
+    out = torch.empty((M, N), dtype=f32, device=x.device)
+    part = torch.empty((plan.rows_segments(K), rows, N), dtype=f32, device=x.device)
+    build.launch(f.label, f.fn, x.data_ptr(), X.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 M, N, K, rows, plan.rows_tile(M), plan.copies(_operand(x, K), _operand(X, N)), _stream(x))
+    return out
+
+
+def project_rows(x: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """O = x·X: x (M, K), X (K, N) → (M, N) f32, f32 operands — the
+    serving projection.  K is cut into fixed segments whose partials one
+    fixed tree combines (``csrc/gemm_rows.cu``), so each row's output has
+    the same bits whatever the other rows of the call: the form serving
+    holds bitwise.  ``matmul_nn`` (one chain over K) stays bitwise
+    ``proj_stage`` for the fits."""
+    (M, K), (K2, N) = x.shape, X.shape
+    if K != K2:
+        raise ValueError(f"project_rows: contraction mismatch {K} vs {K2}")
+    if K == 0:
+        raise ValueError("project_rows: empty contraction")
+    if on_cpu(x, X):
+        return ref.project_rows_ref(x, X)
+    return gemm_rows(form("project_rows", x, X), x, X)
 
 
 def matmul_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

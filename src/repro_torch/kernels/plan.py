@@ -91,6 +91,22 @@ SEEDED_SLAB = 4096
 #: (``tests/test_torch_recompute.py`` pins them).
 ONE_BUCKET_ELEMS = 1 << 20
 
+#: The serving form's split-K product (``csrc/gemm_rows.cu``, whose header
+#: states the contract): K cut into segments of ROWS_KSEG rows, one
+#: partial per segment and element, the partials summed by one fixed tree,
+#: so an element's bits depend on K, not on M.  A segment launch computes
+#: one segment of an output tile of ROWS_TILES (rows, columns, threads,
+#: blocks per SM; ``gemm_rows.cu`` Tile0, Tile1 in this order), in a ring of
+#: :func:`rows_smem` bytes (4 stages of x and X, RING_BK steps each); a tree
+#: launch gives each element of the output one of ROWS_TREE_THREADS
+#: threads.  The wrapper's scratch of partials holds at most
+#: ROWS_SCRATCH_BYTES (S × rows × N f32), so a larger M runs in slices of
+#: rows (:func:`rows_slice`).
+ROWS_KSEG = 1024
+ROWS_TILES = ((16, 64, 256, 5), (64, 64, 256, 3))
+ROWS_TREE_THREADS = 256
+ROWS_SCRATCH_BYTES = 1 << 27
+
 SCHEDULES = ("recompute", "staged")
 
 
@@ -361,6 +377,58 @@ def plan_gram_sweep(n: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
 def plan_matmul_nn(M: int, K: int, N: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
     """O (M×N) = X (M×K)·Q (K×N): the NN kernel, as :func:`plan_proj_stage`."""
     return (gemm_nn(M, N, K, dtype=dtype),)
+
+
+def rows_segments(K: int) -> int:
+    """S, the segments of K that the serving form's partials cover."""
+    return cdiv(K, ROWS_KSEG)
+
+
+def rows_tile(M: int) -> int:
+    """The index in :data:`ROWS_TILES` of the segment tile for M rows: the
+    16-row tile while one of its row tiles holds them all (a thread's one
+    row, so at M = 1 a warp does a sixteenth of the 64-row tile's FFMAs),
+    else the 64-row tile (four rows a thread: more FFMAs per shared-memory
+    read).  Every element's chain is the same on both, so are the bits."""
+    return 0 if M <= ROWS_TILES[0][0] else 1
+
+
+def rows_smem(tile: int) -> int:
+    """The ring of a segment launch on ``tile``: 4 stages of BM × RING_BK of
+    x and RING_BK × BN of X, f32."""
+    bm, bn, _, _ = ROWS_TILES[tile]
+    return 4 * RING_BK * (bm + bn) * 4
+
+
+def rows_slice(M: int, K: int, N: int) -> int:
+    """The rows of x that one slice of a ``project_rows`` call contracts:
+    all M where the partials of M rows fit :data:`ROWS_SCRATCH_BYTES`, else
+    as many rows, in whole tiles of either shape, as do (at least one
+    tile).  The bits do not depend on it.  At the serving shapes (K = 2^19,
+    N = 60) a slice is 1,088 rows."""
+    bm = max(t[0] for t in ROWS_TILES)
+    fit = ROWS_SCRATCH_BYTES // (4 * rows_segments(K) * N) // bm * bm
+    return min(M, max(bm, fit))
+
+
+def plan_project_rows(M: int, K: int, N: int) -> tuple[LaunchPlan, ...]:
+    """O (M×N) = x (M×K)·X (K×N) in f32 by the serving form: per slice of
+    rows a segment launch on :func:`rows_tile`'s tile (the products,
+    2·rows·K·N FLOPs; x's slice and X read, the partials written) and a
+    tree launch (rows·N·(S − 1) adds over the real partials; the partials
+    read, the slice of O written)."""
+    tile = rows_tile(M)
+    bm, bn, threads, _ = ROWS_TILES[tile]
+    S, step = rows_segments(K), rows_slice(M, K, N)
+    out: list[LaunchPlan] = []
+    for m0 in range(0, M, step):
+        ms = min(step, M - m0)
+        part = 4 * S * ms * N
+        out.append(LaunchPlan("gemm_rows_segment", (cdiv(ms, bm), S, cdiv(N, bn)), (threads,),
+                              rows_smem(tile), 2 * ms * K * N, 4 * (ms * K + K * N) + part))
+        out.append(LaunchPlan("gemm_rows_tree", (cdiv(ms * N, ROWS_TREE_THREADS),),
+                              (ROWS_TREE_THREADS,), 0, ms * N * (S - 1), part + 4 * ms * N))
+    return tuple(out)
 
 
 def plan_matmul_tn(K: int, M: int, N: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:

@@ -9,7 +9,9 @@ in f32, as the kernels do.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .plan import ROWS_KSEG, rows_segments
 from .rand import omega_tile
 
 f32 = torch.float32
@@ -42,6 +44,35 @@ def gram_sweep_ref(p: torch.Tensor) -> torch.Tensor:
 def matmul_nn_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """O = x · q in f32 (``_mm_nn_kernel``)."""
     return x.to(f32) @ q.to(f32)
+
+
+def project_rows_ref(x: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """O = x · X in f32 by the serving form's reduction (``project_rows``,
+    ``csrc/gemm_rows.cu``): K cut into segments of :data:`~.plan.ROWS_KSEG`
+    rows, one product per segment (torch's order inside it), the partials
+    combined by :func:`segment_tree`."""
+    x, X = x.to(f32), X.to(f32)
+    (M, K), N = x.shape, X.shape[1]
+    S = rows_segments(K)
+    pad = S * ROWS_KSEG - K  # zero terms: each adds an exact 0 to its segment
+    if pad:
+        x, X = F.pad(x, (0, pad)), F.pad(X, (0, 0, 0, pad))
+    parts = torch.bmm(x.reshape(M, S, ROWS_KSEG).transpose(0, 1), X.reshape(S, ROWS_KSEG, N))
+    return segment_tree(parts)
+
+
+def segment_tree(parts: torch.Tensor) -> torch.Tensor:
+    """The serving form's tree over the S partials ``parts[0 .. S)``: padded
+    with zeros to the least power of two P ≥ S, then added in pairs level by
+    level (2m and 2m + 1 into m) until one is left.  Its shape depends on S
+    only."""
+    S = parts.shape[0]
+    P = 1 << (S - 1).bit_length()
+    if P > S:
+        parts = torch.cat([parts, parts.new_zeros((P - S, *parts.shape[1:]))])
+    while parts.shape[0] > 1:
+        parts = parts[0::2] + parts[1::2]
+    return parts[0]
 
 
 def matmul_tn_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -13,12 +13,15 @@ dropped or served by a half-installed model, because the batch thread
 reads the model once per batch under the queue lock.
 
 Projection (:func:`project`).  Under ``engine="kernels"`` it is
-``kernels.matmul_nn``: on the card the CUDA ``gemm_nn_f32``, each output
-element one ascending-k FMA chain with no split-K, so a row's embedding
-has the same bits at every batch size and the version stamp can be held
-bitwise (``x @ Xa(v)`` of the row alone).  ``engine="torch"`` is
-``torch.matmul``, the oracle engine (cuBLAS picks its kernel, or a
-split-K, by the batch size).  On the CPU both take the plain version.
+``kernels.project_rows``: on the card the CUDA ``gemm_rows_f32``, which
+cuts K into fixed segments, makes each segment's partial of an element
+by one ascending-k FMA chain and combines the partials by one fixed tree
+whose shape depends on K alone (not ``matmul_nn``'s one chain over K).
+So a row's embedding has the same bits at every batch size and the
+version stamp can be held bitwise (``x @ Xa(v)`` of the row alone).
+``engine="torch"`` is ``torch.matmul``, the oracle engine (cuBLAS picks
+its kernel, or a split-K, by the batch size).  On the CPU both take a
+plain version.
 
 Padding: a batch of r requests is padded to the next power of two (at
 most ``max_batch``), so the projection sees a handful of shapes.
@@ -51,14 +54,16 @@ def _engine(engine: str) -> str:
 
 def project(X: torch.Tensor, x, engine: str = "kernels") -> torch.Tensor:
     """Rows ``x`` (numpy or a tensor, (n, d) or (d,)) times ``X`` (d, k)
-    on ``X``'s device, in f32: ``matmul_nn`` under the kernels engine,
-    ``torch.matmul`` under the torch engine."""
-    from ..kernels import matmul_nn
+    on ``X``'s device, in f32: ``project_rows`` under the kernels engine
+    (each row's bits fixed by d alone), ``torch.matmul`` under the torch
+    engine."""
+    from ..kernels import project_rows
 
     x = torch.as_tensor(x, dtype=torch.float32).to(X.device, non_blocking=False)
     if _engine(engine) == "torch":
         return torch.matmul(x, X.float())
-    return matmul_nn(x.contiguous(), X.float().contiguous())
+    out = project_rows(x.reshape(-1, x.shape[-1]).contiguous(), X.float().contiguous())
+    return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -262,7 +267,10 @@ class CorpusIndex:
     """One view's projected corpus, indexed for cross-view top-k.
 
     Rows are projected once at build time (streamed chunk by chunk from a
-    view store: the corpus never exists beyond its embeddings); ``topk``
+    view store: the corpus never exists beyond its embeddings) by
+    :func:`project`, as the projector projects a request: under the
+    kernels engine an index row is bitwise the projector's response for
+    that row, whatever the chunk around it.  ``topk``
     scores a query embedding from the other view with the
     correlation-weighted inner product and returns the best rows.
     """

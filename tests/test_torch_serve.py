@@ -9,8 +9,10 @@
   On the CPU both engines take the plain product, whose bits may move
   with the batch size, so a response is held to its stamped version's
   product of the row alone within 1e-6 relative, and shown outside that
-  of the other version; the bitwise form (``matmul_nn``'s one FMA chain
-  per element) is held on the card by ``chip_smoke.py``'s serve phase.
+  of the other version; the bitwise form (``project_rows``: fixed
+  segments of K, each an FMA chain, combined by one tree whose shape
+  depends on K alone) is held on the card by ``chip_smoke.py``'s serve
+  phase.
 - The corpus index, the drift monitor and ``paired_correlation`` behave
   as the reference's, and are held to ``repro.serve``'s on the same
   model and rows: ``paired_correlation`` and the monitor's window means
