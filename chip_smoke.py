@@ -66,17 +66,23 @@ Phases, each of which fails the run by raising:
    pairwise tree merges full-width stats once), each run with the launch
    counters zeroed just before and read just after: ``engine="kernels"``
    (its peak device memory must stay below the 69.47 GB the merge
-   stack reached while it kept closed groups on the card), then
+   stack reached while it kept closed groups on the card), traced
+   (``--trace build/trace_fit``: its ρ/Xa digests unchanged, coverage
+   ≥ 0.95, ``kernel_cost`` calls per entry point equal to the launch
+   counters, ``device_s`` on every chunk and io_wait span, the modelled
+   fold rate under the f32 peak, each pass's chunk and io_wait seconds on
+   the card beside its wall and the predictions, ``export-trace`` JSON
+   with one X event per span; no later fit may write a trace), then
    ``engine="torch"`` on the same data and Ω (their ρ must agree), then
    ``--omega seeded`` and ``--omega seeded-materialized`` at
-   ``PAIR_CHUNKS`` = 8 (one merge group: their contract holds at any
-   depth), whose ρ and X must be bitwise equal, at 4 / 5 launches per
+   ``PAIR_CHUNKS`` = 2 (their contract holds at any depth), whose ρ and
+   X must be bitwise equal, at 4 / 5 launches per
    power / final chunk (both passes staged), the seeded one holding less
    device memory; then the paper's other oversampling, ``--p 910``
    (k̃ = 970), where the final pass recomputes: kernels engine (2
    ``projgram`` + 1 ``matmul_tn`` per final chunk, no ``gram_sweep``)
-   against the torch engine, and ``--q 0 --omega seeded`` bitwise
-   ``--omega seeded-materialized`` (8 chunks);
+   against the torch engine (``P910_CHUNKS`` = 8), and ``--q 0 --omega
+   seeded`` bitwise ``--omega seeded-materialized`` (``PAIR_CHUNKS``);
 8. matmul_nn — ``matmul_nn`` (the port of ``_mm_nn_kernel``) at one
    microbatch of one model shard at Europarl width (4096 × 2^18 · 2^18 ×
    2060) and at 333 × 9001 → 67: within 4·√K·u of its plain version,
@@ -140,9 +146,9 @@ Phases, each of which fails the run by raising:
     FLOPs plus the generator's int32 work);
 13. stream bf16 (after phase 7) — ``cca_fit --compute-dtype bfloat16``:
     at Europarl width (p = 2000, both passes staged) ``--omega seeded``
-    bitwise ``seeded-materialized`` (8 chunks), the kernels engine
+    bitwise ``seeded-materialized`` (``PAIR_CHUNKS``), the kernels engine
     against the torch engine (16 chunks, |Δρ| ≤ 1e-3); ``--p 910 --q 0``
-    seeded bitwise its oracle (8 chunks); the smoke width, centered (both
+    seeded bitwise its oracle (``PAIR_CHUNKS``); the smoke width, centered (both
     passes recompute):
     seeded bitwise its oracle, kernels against torch.  Each fit prints its
     launches by name, schedules, pass times, peak memory and Σρ beside
@@ -157,11 +163,17 @@ Phases, each of which fails the run by raising:
     cluster fit of the same store in a child process (two workers sharing
     the card), bitwise it, its launches summed over the workers the Local
     fit's, every worker on ``cuda:0``, each pass's publish, barrier, merge
-    and boundary seconds, its bytes and each worker's peak memory;
+    and boundary seconds, its bytes and each worker's peak memory; the
+    child runs under ``RCCA_TRACE`` (its workers inherit it): no protocol
+    violation, every process a role and coverage ≥ 0.95, the
+    coordinator's publish, barrier and merge spans within 10 ms of its
+    diagnostics, the workers' ``kernel_cost`` calls their launches;
 16. serve (inside phases 14 and 15, on their store) — the incremental
     fit and the serving tier: at the smoke width, in a child process
     beside phase 15's cluster child, ``cca_serve --smoke`` under both
-    engines and the delta-refit contracts (``serve_child``); at Europarl
+    engines (the kernels one with ``--trace``: its refit, index, batch,
+    swap, registry and drift spans and counters) and the delta-refit
+    contracts (``serve_child``); at Europarl
     width phase 14's store is written in two steps (its first 8 chunks
     while the kernels build) and ``fit_with_state`` (seeded) runs on the
     first 8 chunks; its FitState is saved beside phase 14's fits, and
@@ -199,6 +211,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -216,9 +229,12 @@ HBM_BYTES_PER_S = 3.35e12
 U = 2.0 ** -24  # f32 unit roundoff
 N_CHUNKS = 16  # two merge groups of 8: the pairwise tree merges once
 # the bitwise pairs (seeded ≡ seeded-materialized, f32 and bf16, p = 2000
-# and p = 910 q = 0): one merge group, where their contract holds as at any
-# depth (cut from 16 for the time limit)
-PAIR_CHUNKS = 8
+# and p = 910 q = 0): part of a merge group, where their contract holds as
+# at any depth (cut from 16 to 8, to 4, then to 2, for the time limit)
+PAIR_CHUNKS = 2
+# the p = 910 kernels-against-torch pair: one merge group (cut from 16 for
+# the time limit)
+P910_CHUNKS = 8
 # timed runs of a plain version at the main path's shapes, after its warm-up
 # (a yardstick, not a kernel: cut from 3 for the time limit)
 PLAIN_REPS = 1
@@ -232,6 +248,15 @@ STACK_ON_CARD_PEAK_GB = 69.47
 # Σρ of each stream fit of this run, by its label (run_fit): the bf16 fits
 # print their distance to the f32 fit of the same data and Ω
 SUM_RHO: dict = {}
+# phase 7's traced Europarl fit: its trace directory (emptied after its
+# checks; no later fit of this process may write into it), the ρ/Xa digests
+# of the untraced fit it must reproduce, that fit's untraced pass times (s) on this card
+# and the chunk spans' device seconds predicted from §6's stand-alone times
+TRACE_FIT = Path(__file__).resolve().parent / "build" / "trace_fit"
+FIT_DIGEST = ("b54e6ae571e3ebb9", "c9e1e7e2eaa72162")
+UNTRACED_PASS_S = (37.93, 20.16)
+PREDICTED_CHUNK_S = (16 * 2 * (431.877 + 405.981) / 1e3,
+                     16 * (2 * 431.877 + 2 * 2.512 + 2.495) / 1e3)
 
 # the store phase at Europarl width: 8 full 512-row chunks and a 256-row tail
 # (two merge groups), 2 chunks a shard (verify() hashes its 10 files in parallel)
@@ -1033,6 +1058,86 @@ def rho_ok(rho) -> bool:
     return bool((torch.isfinite(rho) & (rho >= 0) & (rho <= 1 + 1e-5)).all())
 
 
+def pass_decomposition(events) -> list:
+    """Per pass of a traced stream fit: (pass_idx, Σ device_s of its chunk
+    spans, Σ device_s of its io_wait spans, its span's wall)."""
+    spans = [e for e in events if e.get("ev") == "span"]
+    out = []
+    for p in sorted((e for e in spans if e["name"] == "pass"),
+                    key=lambda e: e["attrs"]["pass_idx"]):
+        i = p["attrs"]["pass_idx"]
+
+        def dev_s(name):
+            return sum(e.get("device_s", 0.0) for e in spans
+                       if e["name"] == name and e["attrs"].get("pass_idx") == i)
+        out.append((i, dev_s("chunk"), dev_s("io_wait"), p["dur"]))
+    return out
+
+
+def trace_fit_checks(rep, launches) -> None:
+    """Phase 7's traced fit (``cca_fit --trace``): the untraced fit's
+    digests, coverage ≥ 0.95, ``kernel_cost`` calls per entry point equal
+    to the launch counters, ``device_s`` on every chunk and io_wait span,
+    the modelled fold rate under the f32 peak; prints each pass's device
+    seconds beside its wall, the predictions and the untraced pass
+    times; then ``python -m repro_torch.obs export-trace`` (its ``main``,
+    in this process) must write JSON with one X event per span.  The trace
+    files are deleted after."""
+    from repro_torch.obs import close as obs_close
+    from repro_torch.obs import load_events
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.__main__ import main as obs_main
+
+    events = load_events(str(TRACE_FIT))
+    r = obs_report.analyze(str(TRACE_FIT))
+    spans = [e for e in events if e.get("ev") == "span"]
+    timed = [e for e in spans if e["name"] in ("chunk", "io_wait")]
+    chunks = [e for e in spans if e["name"] == "chunk"]
+    calls = {k: v["calls"] for k, v in r["roofline"]["kernels"].items()}
+    flops = sum(e["attrs"]["flops"] for e in chunks)
+    chunk_dev = sum(e.get("device_s", 0.0) for e in chunks)
+    rate = flops / chunk_dev if chunk_dev else float("inf")
+    for i, c, w, wall in pass_decomposition(events):
+        mine = [e for e in chunks if e["attrs"]["pass_idx"] == i]
+        print(f"[smoke] traced fit pass {i}: each chunk's span on the card "
+              f"{[round(e.get('device_s', 0.0), 3) for e in mine]} s, on the host "
+              f"{[round(e['dur'], 3) for e in mine]} s", flush=True)
+        print(f"[smoke] traced fit pass {i}: chunk spans {c:.3f} s on the card (predicted "
+              f"{PREDICTED_CHUNK_S[i]:.1f} s from the stand-alone kernel times), io_wait spans "
+              f"{w:.3f} s on the card, the rest {wall - c - w:.3f} s of the pass span's "
+              f"{wall:.3f} s wall; fit's pass time {rep.pass_seconds[i]:.3f} s traced, "
+              f"{UNTRACED_PASS_S[i]} s untraced", flush=True)
+    for key, fd in r["roofline"]["folds"].items():
+        print(f"[smoke] traced fit {key}: {fd['flops'] / 1e12:.3f} model TFLOP over "
+              f"{fd['s']:.3f} s ({fd.get('clock', 'dur')}) = "
+              f"{fd['model_gflops_per_s'] / 1e3:.3f} TFLOP/s (f32 peak "
+              f"{F32_PEAK_FLOPS / 1e12:.0f})", flush=True)
+    out = TRACE_FIT.parent / "trace_fit.json"
+    obs_main(["export-trace", str(TRACE_FIT), "-o", str(out)])
+    with open(out) as f:
+        doc = json.load(f)
+    out.unlink()
+    got = {"digests (rho, Xa) unchanged": (digest(rep.result.rho),
+                                           digest(rep.result.Xa)) == FIT_DIGEST,
+           "coverage >= 0.95": r["coverage"] >= 0.95,
+           "kernel_cost calls = launches": calls == launches,
+           "device_s on every chunk and io_wait span": all("device_s" in e for e in timed)
+           and len(chunks) == 2 * N_CHUNKS,
+           "every fold row on the card's clock": all(fd.get("clock") == "device_s"
+                                                     for fd in r["roofline"]["folds"].values()),
+           "modelled fold rate < f32 peak": rate < F32_PEAK_FLOPS,
+           "export-trace: one X event per span": sum(e["ph"] == "X" for e in doc["traceEvents"])
+           == len(spans)}
+    print(f"[smoke] traced fit: {len(events)} records, coverage {r['coverage']}, kernel_cost "
+          f"calls {calls}, fold {flops / 1e12:.3f} model TFLOP / {chunk_dev:.3f} s = "
+          f"{rate / 1e12:.3f} TFLOP/s; {got}", flush=True)
+    obs_close()  # a later record in this process would open its file anew
+    for f in TRACE_FIT.iterdir():
+        f.unlink()
+    if not all(got.values()):
+        raise AssertionError("phase 7's traced fit failed a trace check")
+
+
 def phase_smoke_fits(dev) -> dict:
     """The smoke width on the card, where both passes recompute: kernels
     engine, torch engine, ``--omega seeded``, each against the exact
@@ -1081,8 +1186,14 @@ def phase_fit(dev) -> dict:
     wl = config()
     argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED)]
     print(f"[smoke] main path: Europarl width, n cut to {N_CHUNKS} chunks of 8192 rows "
-          "(the time limit's cut)", flush=True)
-    rep_k, launches, peak_k, _ = run_fit(argv + ["--engine", "kernels"], "kernels engine")
+          "(the time limit's cut), traced", flush=True)
+    shutil.rmtree(TRACE_FIT, ignore_errors=True)
+    try:
+        rep_k, launches, peak_k, _ = run_fit(
+            argv + ["--engine", "kernels", "--trace", str(TRACE_FIT)], "kernels engine")
+    finally:
+        os.environ.pop("RCCA_TRACE", None)  # set by --trace; the later fits are not traced
+    trace_fit_checks(rep_k, launches)
     nc = rep_k.n_chunks
     want_power = {"proj_stage": 2 * nc, "powerpass_sweep": 2 * nc}  # 4 per chunk
     want_final = {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}  # 5 per chunk
@@ -1153,9 +1264,10 @@ def phase_fit_910(dev) -> dict:
     the fused projgram kernels' launches."""
     import torch
 
-    argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED),
+    argv = ["--device", dev.type, "--n-chunks", str(P910_CHUNKS), "--seed", str(SEED),
             "--p", "910"]
-    print("[smoke] p = 910: Europarl width, k̃ = 970, n cut as above", flush=True)
+    print(f"[smoke] p = 910: Europarl width, k̃ = 970, n cut to {P910_CHUNKS} chunks",
+          flush=True)
     rep_k, launches_k, peak_k, _ = run_fit(argv, "p=910 kernels engine")
     nc = rep_k.n_chunks
     final = {"projgram": 2 * nc, "matmul_tn": nc}  # 3 per chunk, no gram_sweep
@@ -1874,8 +1986,6 @@ def ingest_head(dev):
     copied, hashed and written by the host → the thread's future of
     (reader, seconds).  Raises before writing when the target's free disk
     cannot hold the store with phase 14's cursors."""
-    import shutil
-
     from repro_torch.launch import cca_fit
 
     shutil.rmtree(STORE_ROOT, ignore_errors=True)
@@ -1928,8 +2038,6 @@ def phase_store(dev, head) -> dict:
     save and restore seconds.  The store and the cursors are deleted at
     the end, whatever happens.  Phases 15 and 16 run on these stores;
     returns phase 16's kernels-line row of ``project_rows``."""
-    import shutil
-
     import torch
 
     from repro_torch.configs.europarl_cca import smoke_config
@@ -2089,6 +2197,58 @@ def cluster_child(store: str, cluster_dir: str) -> int:
     return 0
 
 
+def cluster_trace_checks(trace_dir: Path, passes: list) -> dict:
+    """Phase 15's traced cluster child: the protocol verdict, every
+    process's role and coverage, the coordinator's publish, barrier and
+    merge spans against its diagnostics (one clock: within 10 ms), and
+    the workers' ``kernel_cost`` calls against their launches, summed."""
+    from repro_torch.obs import load_events
+    from repro_torch.obs import report as obs_report
+
+    events = load_events(str(trace_dir))
+    r = obs_report.analyze(str(trace_dir))
+    spans = [e for e in events if e.get("ev") == "span"]
+    coord = [e for e in spans if e.get("ctx", {}).get("role") == "coordinator"]
+    gaps = {}
+    for name, key in (("publish", "publish_s"), ("barrier", "barrier_s"), ("merge", "merge_s")):
+        durs = [e["dur"] for e in coord if e["name"] == name]
+        gaps[name] = ([round(d - p[key], 4) for d, p in zip(durs, passes)]
+                      if len(durs) == len(passes) else None)
+    calls, launched = {}, {}
+    for e in events:
+        if e.get("ev") == "ctr" and e["name"] == "kernel_cost":
+            calls[e["fields"]["kernel"]] = calls.get(e["fields"]["kernel"], 0) + \
+                e["fields"]["calls"]
+    for p in passes:
+        for k, v in p["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    roles = {pid: (p["role"], p["coverage"]["fraction"]) for pid, p in r["processes"].items()}
+    barrier_t = {e["attrs"]["pass_idx"]: e["t"] for e in coord if e["name"] == "barrier"}
+    for wp in sorted((e for e in spans if e["name"] == "worker_pass"),
+                     key=lambda e: (e["attrs"]["pass_idx"], e["pid"])):
+        i, mine = wp["attrs"]["pass_idx"], [e for e in spans if e["pid"] == wp["pid"]]
+
+        def dev_s(name):
+            return sum(e.get("device_s", 0.0) for e in mine if e["name"] == name)
+        print(f"[smoke] cluster trace pass {i} {wp['ctx']['role']}: its fold starts "
+              f"{wp['t'] - barrier_t.get(i, wp['t']):.3f} s after the barrier opens and takes "
+              f"{wp['dur']:.3f} s: chunk spans {dev_s('chunk'):.3f} s and io_wait spans "
+              f"{dev_s('io_wait'):.3f} s on the card, publish spans "
+              f"{sum(e['dur'] for e in mine if e['name'] == 'publish'):.3f} s", flush=True)
+    proto = r.get("protocol", {"events": 0, "violations": ["no protocol events"]})
+    print(f"[smoke] cluster trace: {len(events)} records from {len(roles)} processes "
+          f"(role, coverage) {sorted(roles.values())}; protocol {proto['events']} events, "
+          f"violations {proto['violations']}; span − diagnostics s {gaps}; merge share "
+          f"{r['merge']['share']}; kernel_cost calls {calls}", flush=True)
+    return {"trace: protocol without violations": proto["events"] > 0
+            and not proto["violations"],
+            "trace: every process has a role": all(role != "proc" for role, _ in roles.values()),
+            "trace: coverage >= 0.95 in every process": all(c >= 0.95 for _, c in roles.values()),
+            "trace: publish, barrier, merge = diagnostics (10 ms)": all(
+                g is not None and all(abs(x) <= 0.010 for x in g) for g in gaps.values()),
+            "trace: kernel_cost calls = launches over the workers": calls == launched}
+
+
 def dir_gb(path: Path) -> float:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
 
@@ -2121,8 +2281,6 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
     the smoke cluster fits, and ``beside_child()`` just before the cluster
     child starts: it returns the call that ends what it started, made
     once the child is done; ``after_local``'s result is returned."""
-    import shutil
-
     import torch
 
     from repro_torch.cluster.worker import KILL_ENV
@@ -2201,10 +2359,13 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
               flush=True)
         end_beside = beside_child() if beside_child is not None else None
         t0 = time.perf_counter()
-        # a session of its own: on a time-out its workers are killed with it
+        # a session of its own: on a time-out its workers are killed with it;
+        # traced (its workers inherit RCCA_TRACE)
+        trace_dir = root / "cluster_trace"
         proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), CLUSTER_CHILD,
                                  reader.path, str(cdir)], stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+                                stderr=subprocess.PIPE, text=True, start_new_session=True,
+                                env={**os.environ, "RCCA_TRACE": str(trace_dir)})
         try:
             stdout, stderr = proc.communicate(timeout=CLUSTER_TIMEOUT_S)
         finally:
@@ -2238,7 +2399,8 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
                "launches ≡ Local": [p["launches"] for p in out["passes"]] == want,
                "workers on cuda:0": all(w["device"] == "cuda:0" for p in out["passes"]
                                         for w in p["workers"]),
-               "two workers a pass": all(len(p["workers"]) == 2 for p in out["passes"])}
+               "two workers a pass": all(len(p["workers"]) == 2 for p in out["passes"]),
+               **cluster_trace_checks(trace_dir, out["passes"])}
         print(f"[smoke] cluster Europarl: sum rho {out['sum_rho']:.6f} (Local {want_sum:.6f}), "
               f"sha256 rho {out['rho']}, Xa {out['Xa']}; {got}", flush=True)
         if not all(got.values()):
@@ -2276,6 +2438,7 @@ def serve_child(root: str) -> int:
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.core.rcca import RCCAConfig
     from repro_torch.data import PlantedCCAData
     from repro_torch.exec import FitState, delta_refit, fit, fit_with_state
@@ -2286,13 +2449,23 @@ def serve_child(root: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(root)
     checks = {}
+    trace_dir = root / "trace"
     for engine in ("kernels", "torch"):
         kops.reset_launch_counts()
         t0 = time.perf_counter()
-        rep = cca_serve.serve(cca_serve.parse_args(
-            ["--smoke", "--device", "cuda", "--engine", engine, "--store",
-             str(root / f"store_{engine}"), "--registry", str(root / f"registry_{engine}")]))
+        traced = ["--trace", str(trace_dir)] if engine == "kernels" else []
+        try:
+            rep = cca_serve.serve(cca_serve.parse_args(
+                ["--smoke", "--device", "cuda", "--engine", engine, "--store",
+                 str(root / f"store_{engine}"), "--registry",
+                 str(root / f"registry_{engine}")] + traced))
+        finally:
+            os.environ.pop("RCCA_TRACE", None)  # set by --trace
         launches = kops.launch_counts()
+        if traced:
+            checks.update(serve_trace_checks(trace_dir, rep))
+            obs.close()
+            shutil.rmtree(trace_dir)
         print(f"[smoke] serve smoke, cca_serve --engine {engine}: {time.perf_counter() - t0:.3f} "
               f"s, launches {launches}, projector {rep['projector']}", flush=True)
         checks[f"cca_serve {engine}: drift flagged, then recovered"] = \
@@ -2340,6 +2513,40 @@ def serve_child(root: str) -> int:
             res, colds["kernels", omega])
     print("[serve] " + json.dumps({"checks": checks}), flush=True)
     return 0
+
+
+def serve_trace_checks(trace_dir: Path, rep: dict) -> dict:
+    """Phase 16's traced ``cca_serve --smoke`` (kernels engine): one
+    ``delta_refit`` and one ``index_build`` span, ``serve_batch`` spans
+    whose occupancies sum to the requests served, a ``serve_swap`` per
+    swap, the two ``registry_publish`` counters, ``drift`` counters and
+    the ``drift_signal`` of the shifted traffic; device seconds on the
+    refit's chunk spans."""
+    from repro_torch.obs import load_events
+
+    events = load_events(str(trace_dir))
+
+    def named(ev, name):
+        return [e for e in events if e.get("ev") == ev and e["name"] == name]
+
+    chunks = named("span", "chunk")
+    got = {"serve trace: one delta_refit span": len(named("span", "delta_refit")) == 1,
+           "serve trace: one index_build span": len(named("span", "index_build")) == 1,
+           "serve trace: serve_batch occupancies = requests":
+               sum(e["attrs"]["occupancy"] for e in named("span", "serve_batch"))
+               == rep["projector"]["requests"],
+           "serve trace: serve_swap counters": len(named("ctr", "serve_swap"))
+           == rep["projector"]["swaps"] >= 1,
+           "serve trace: two registry_publish counters": len(named("ctr", "registry_publish"))
+           == 2,
+           "serve trace: drift counters and a drift_signal": len(named("ctr", "drift")) >= 3
+           and len(named("ctr", "drift_signal")) == 1,
+           "serve trace: device_s on every chunk span": bool(chunks)
+           and all("device_s" in e for e in chunks)}
+    print(f"[smoke] serve trace: {len(events)} records, {len(named('span', 'serve_batch'))} "
+          f"serve_batch spans, {len(chunks)} chunk spans "
+          f"({sum(e.get('device_s', 0.0) for e in chunks):.4f} s on the card)", flush=True)
+    return got
 
 
 def tensor_gb(*trees) -> float:
@@ -2403,8 +2610,6 @@ def serve_save(root: Path, fitted: dict) -> dict:
     """``FitState.save`` of the 8-chunk fit's state, from the host (beside
     phase 14's fits; the state is dropped after) → its GB, seconds and
     the free disk before."""
-    import shutil
-
     state = fitted.pop("state")
     free = shutil.disk_usage(root).free
     need = tensor_gb([c.acc_stack for c in state.passes.values()],
@@ -2455,8 +2660,6 @@ def serve_delta(dev, root: Path, reader, saved: dict) -> dict:
     after; the FitState's files are deleted after.  Returns the refit's
     result (on the card), its launches, its state's metadata and its
     print-outs; phase 15's Local seeded fit (the cold fit) checks it."""
-    import shutil
-
     import torch
 
     from repro_torch.exec import FitState, delta_refit
@@ -2500,8 +2703,6 @@ def serve_publish(root: Path, fitted: dict, delta: dict) -> dict:
     (the 8-chunk fit) and v2 (the delta refit, parent v1) → {version:
     (GB, s)}.  No kernel is launched and nothing moves to or from the
     card: the Local fit's launch counts and copies stay its own."""
-    import shutil
-
     from repro_torch.serve import ModelRegistry
 
     reg = ModelRegistry(str(root / "registry"))
@@ -2542,8 +2743,6 @@ def phase_serve(dev, root: Path, reader, wl, loc, delta: dict, published: dict) 
     seconds and a top-5, and the free disk; deletes the registry.  Returns
     the kernels line's ``project_rows`` row: its serving launches (index,
     drift, projector) and ``serve_kernel``'s numbers."""
-    import shutil
-
     import numpy as np
     import torch
 
@@ -3006,6 +3205,9 @@ def main() -> int:
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the main path")
+    if any(TRACE_FIT.iterdir()):
+        raise AssertionError(f"a fit after phase 7's traced fit wrote into {TRACE_FIT}")
+    TRACE_FIT.rmdir()
     print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

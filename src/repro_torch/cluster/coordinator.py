@@ -22,9 +22,17 @@ Workers fold whole merge groups with the Local fit's per-chunk updates
 and the merge is the Local fit's tree, so the result is bitwise the Local
 store fit's (``exec.fit`` with the same store, Ω, engine and merge group)
 for any worker count and combine span, under injected kills and hangs
-and after re-dispatch.  The reference's ``obs`` spans, protocol trace
-events and determinism sanitizer are not here (their packages are not
-ported yet).
+and after re-dispatch.
+
+Under ``RCCA_TRACE`` the coordinator records the ``fit`` span
+(``site="coordinator"``, role ``coordinator``), a ``pass`` span each
+pass and inside it the ``publish``, ``barrier`` and ``merge`` spans,
+whose seconds are the pass diagnostics' ``publish_s``, ``barrier_s`` and
+``merge_s`` on one clock (``obs.monotonic``); the ``heartbeat`` (about
+once a second at the barrier), ``redispatch`` and ``workers`` counters;
+and a ``merge`` protocol event per partial merged.  The workers inherit
+the variable.  The reference's determinism sanitizer is not ported
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .. import obs
+from ..analysis.protocol import trace_event
 from ..core.rcca import (DEFAULT_ENGINE, RCCAConfig, RCCAResult, algo_meta, finalize_result,
                          init_Q, omega_seeds, power_update_Q, resolve_engine, resolve_omega,
                          stats_init_fn)
@@ -59,6 +69,14 @@ ROUND_WAIT_S = 600.0
 #: The ``src`` directory that holds ``repro_torch``: workers import the
 #: package from there wherever they are started.
 SRC_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _reap(procs: Dict[int, subprocess.Popen]) -> None:
+    """Kill and wait for the workers that still run."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 class ClusterCoordinator:
@@ -166,7 +184,7 @@ class ClusterCoordinator:
         if self.heartbeat_timeout is None:
             return []
         stale = []
-        now = time.monotonic()
+        now = obs.monotonic()
         for shard, p in procs.items():
             if p.poll() is not None:
                 continue
@@ -202,18 +220,31 @@ class ClusterCoordinator:
                  spawned: List[int]) -> tuple:
         """Wait until every merge group is covered by a valid partial,
         re-dispatching → (plan, redispatched groups, stale shards)."""
-        spawned_at = {s: time.monotonic() for s in procs}
+        spawned_at = {s: obs.monotonic() for s in procs}
         redispatched: List[int] = []
         stale_shards: List[int] = []
         attempts = 0
-        deadline = time.monotonic() + self.worker_timeout if self.worker_timeout else None
+        deadline = obs.monotonic() + self.worker_timeout if self.worker_timeout else None
+        last_liveness = -1.0
         while True:
             plan, missing = pt.collect_coverage(self.cluster_dir, pass_idx, self.n_groups,
                                                 expect)
             if not missing:
                 return plan, redispatched, stale_shards
+            now = obs.monotonic()
+            if obs.enabled() and now - last_liveness >= 1.0:
+                # liveness beside the compute spans: the live workers' beacon ages
+                last_liveness = now
+                for shard, p in procs.items():
+                    if p.poll() is not None:
+                        continue
+                    age = pt.heartbeat_age(self.cluster_dir, shard, pass_idx)
+                    since = now - spawned_at.get(shard, now)
+                    obs.counter("heartbeat", shard=int(shard),
+                                age_s=round(since if age is None else min(age, since), 3),
+                                pass_idx=int(pass_idx), missing_groups=len(missing))
             stale_shards.extend(self._kill_stale(procs, pass_idx, spawned_at))
-            timed_out = deadline is not None and time.monotonic() > deadline
+            timed_out = deadline is not None and obs.monotonic() > deadline
             if timed_out:  # stragglers: kill, then re-dispatch
                 for p in procs.values():
                     if p.poll() is None:
@@ -229,12 +260,14 @@ class ClusterCoordinator:
                 # a repair worker with a shard id outside the striped range,
                 # so its cursors and log never meet an owner's
                 redispatched.extend(missing)
+                obs.counter("redispatch", pass_idx=int(pass_idx), groups=len(missing),
+                            attempt=attempts)
                 repair = self.n_workers + attempts - 1
                 procs.clear()
                 procs[repair] = self._spawn(repair, pass_idx, groups=missing)
                 spawned.append(repair)
-                spawned_at = {repair: time.monotonic()}
-                deadline = (time.monotonic() + self.worker_timeout if self.worker_timeout
+                spawned_at = {repair: obs.monotonic()}
+                deadline = (obs.monotonic() + self.worker_timeout if self.worker_timeout
                             else None)
             time.sleep(0.05)
 
@@ -256,6 +289,9 @@ class ClusterCoordinator:
                 if not pt.binding_matches(meta, expect):  # at-most-once guard
                     raise RuntimeError(f"pass {pass_idx}: stale partial for group {g} at "
                                        "merge time")
+                trace_event("merge", pt.partial_path(self.cluster_dir, pass_idx, g, span),
+                            fit_id=expect["fit_id"], pass_idx=int(pass_idx), group=int(g),
+                            span=int(span))
                 acc.push_group_span(g, stats, span)
                 del stats, loaded
                 g += span
@@ -266,51 +302,60 @@ class ClusterCoordinator:
     def _run_pass(self, pass_idx: int, kind: str, Qa, Qb, expect: dict, fit_id: str):
         """Publish → barrier → streamed merge → (merged stats on the
         coordinator's device, the pass's diagnostics)."""
-        t0 = time.monotonic()
-        # stale-partial hygiene before the barrier polls: retry the removals
-        # that failed earlier, then sweep this pass for other fits' leftovers
-        for key in list(self._clean_pending):
-            if pt.clear_stale_partial(self.cluster_dir, *key) is None:
-                del self._clean_pending[key]
-        for (g, span), err in pt.sweep_stale_partials(self.cluster_dir, pass_idx,
-                                                      self.n_groups, expect).items():
-            self._clean_pending[(pass_idx, g, span)] = err
-        # the workers start while the round is written (they wait for it):
-        # an earlier fit's round of this pass goes first, or they would read it
-        shutil.rmtree(pt.round_dir(self.cluster_dir, pass_idx), ignore_errors=True)
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()  # the workers need the card's memory
+        t0 = obs.monotonic()
         procs: Dict[int, subprocess.Popen] = {}
         spawned: List[int] = []
-        try:
-            for s in range(self.n_workers):
-                if self._owned(s):
-                    procs[s] = self._spawn(s, pass_idx, extra_env=self.env_overrides.get(s))
-                    spawned.append(s)
-            round_bytes = pt.write_round(self.cluster_dir, pass_idx, Qa, Qb,
-                                         {**expect, "n_shards": self.n_workers,
-                                          "combine": self.combine_groups})
-            t_barrier = time.monotonic()
-            plan, redispatched, stale = self._barrier(pass_idx, expect, procs, spawned)
-            # every group is in: let the workers exit (a report is printed
-            # last), and kill what still runs after a grace period
-            for p in procs.values():
-                try:
-                    p.wait(timeout=EXIT_GRACE_S)
-                except subprocess.TimeoutExpired:
-                    pass
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        t_merge = time.monotonic()
-        merged = self._merge(pass_idx, kind, expect, plan)
-        rss_merge = rss_gb()  # the merged stats still on the host
-        merged = type(merged)(*(t.to(self.device) for t in merged))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.monotonic()
+        try:  # the workers spawned so far go if publishing fails
+            with obs.span("publish", pass_idx=int(pass_idx), kind=kind):
+                # stale-partial hygiene before the barrier polls: retry the
+                # removals that failed earlier, then sweep this pass for other
+                # fits' leftovers
+                for key in list(self._clean_pending):
+                    if pt.clear_stale_partial(self.cluster_dir, *key) is None:
+                        del self._clean_pending[key]
+                for (g, span), err in pt.sweep_stale_partials(self.cluster_dir, pass_idx,
+                                                              self.n_groups, expect).items():
+                    self._clean_pending[(pass_idx, g, span)] = err
+                # the workers start while the round is written (they wait for
+                # it): an earlier fit's round of this pass goes first, or they
+                # would read it
+                shutil.rmtree(pt.round_dir(self.cluster_dir, pass_idx), ignore_errors=True)
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()  # the workers need the card's memory
+                for s in range(self.n_workers):
+                    if self._owned(s):
+                        procs[s] = self._spawn(s, pass_idx,
+                                               extra_env=self.env_overrides.get(s))
+                        spawned.append(s)
+                round_bytes = pt.write_round(self.cluster_dir, pass_idx, Qa, Qb,
+                                             {**expect, "n_shards": self.n_workers,
+                                              "combine": self.combine_groups})
+        except BaseException:
+            _reap(procs)
+            raise
+        t_barrier = obs.monotonic()
+        with obs.span("barrier", pass_idx=int(pass_idx), kind=kind):
+            try:
+                plan, redispatched, stale = self._barrier(pass_idx, expect, procs, spawned)
+                # every group is in: let the workers exit (a report is printed
+                # last), and kill what still runs after a grace period
+                for p in procs.values():
+                    try:
+                        p.wait(timeout=EXIT_GRACE_S)
+                    except subprocess.TimeoutExpired:
+                        pass
+            finally:
+                _reap(procs)
+        t_merge = obs.monotonic()
+        with obs.span("merge", pass_idx=int(pass_idx), kind=kind, groups=self.n_groups,
+                      partials=len(plan)):
+            merged = self._merge(pass_idx, kind, expect, plan)
+            rss_merge = rss_gb()  # the merged stats still on the host
+            merged = type(merged)(*(t.to(self.device) for t in merged))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        now = obs.monotonic()
+        obs.counter("workers", pass_idx=int(pass_idx), spawned=len(spawned))
         reports = self._reports(spawned, pass_idx, fit_id)
         launches: Dict[str, int] = {}
         for rep in reports:
@@ -350,12 +395,21 @@ class ClusterCoordinator:
         """All q+1 passes across ``n_workers`` processes → :class:`RCCAResult`
         from Ω = (Qa, Qb) or ``seed`` under ``omega``; bitwise the Local
         store fit's."""
-        r, cfg = self.reader, self.cfg
-        if self.device.type == "cuda" and self.engine == "kernels":
-            build.build()  # the workers load what the coordinator built
         # the fit's identity binds partials to this fit across respawns; it
         # never reaches the arithmetic or the merge order
         fit_id = uuid.uuid4().hex
+        prev = obs.set_context(fit_id=fit_id, role="coordinator")
+        try:
+            with obs.span("fit", site="coordinator", engine=self.engine,
+                          n_workers=self.n_workers, devices_per_worker=1):
+                return self._fit(fit_id, seed, Qa, Qb)
+        finally:
+            obs.set_context(**prev)  # the process's records after the fit are not the fit's
+
+    def _fit(self, fit_id: str, seed, Qa, Qb) -> RCCAResult:
+        r, cfg = self.reader, self.cfg
+        if self.device.type == "cuda" and self.engine == "kernels":
+            build.build()  # the workers load what the coordinator built
         seeded = self.omega == "seeded"
         if Qa is not None or Qb is not None:
             if seed is not None or self.omega != "materialized":
@@ -375,21 +429,23 @@ class ClusterCoordinator:
                                      engine=self.engine, fingerprint=r.fingerprint(),
                                      merge_group=self.merge_group, algo=algo_meta(cfg),
                                      omega=self.omega)
-            stats, diag = self._run_pass(pass_idx, kind, Qa, Qb, expect, fit_id)
-            # n is an f32 accumulator: allow its rounding at huge row counts,
-            # still catching a whole wrong or duplicated chunk
-            if abs(float(stats.n) - r.n) > max(1.0, 1e-6 * r.n):
-                raise RuntimeError(f"pass {pass_idx} merged {float(stats.n):.0f} rows, the "
-                                   f"store has {r.n}: a merge group folded the wrong chunks")
-            t0 = time.monotonic()
-            if kind == "power":
-                if seeded and pass_idx == 0 and cfg.center:
-                    Qa, Qb = self._materialize_omega(Qa, Qb)
-                Qa, Qb = power_update_Q(stats, Qa, Qb, cfg)
-                del stats
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            diag["boundary_s"] = round(time.monotonic() - t0, 4)
+            with obs.span("pass", pass_idx=pass_idx, kind=kind, site="coordinator"):
+                stats, diag = self._run_pass(pass_idx, kind, Qa, Qb, expect, fit_id)
+                # n is an f32 accumulator: allow its rounding at huge row
+                # counts, still catching a whole wrong or duplicated chunk
+                if abs(float(stats.n) - r.n) > max(1.0, 1e-6 * r.n):
+                    raise RuntimeError(f"pass {pass_idx} merged {float(stats.n):.0f} rows, the "
+                                       f"store has {r.n}: a merge group folded the wrong "
+                                       "chunks")
+                t0 = obs.monotonic()
+                if kind == "power":
+                    if seeded and pass_idx == 0 and cfg.center:
+                        Qa, Qb = self._materialize_omega(Qa, Qb)
+                    Qa, Qb = power_update_Q(stats, Qa, Qb, cfg)
+                    del stats
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                diag["boundary_s"] = round(obs.monotonic() - t0, 4)
             passes.append(diag)
         if seeded and cfg.q == 0:  # the finalize needs Ω itself
             Qa, Qb = self._materialize_omega(Qa, Qb)

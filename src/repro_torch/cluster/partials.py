@@ -48,6 +48,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import obs
+from ..analysis.protocol import trace_event
 from ..ckpt import load_flat, load_metadata, save_pytree
 from ..core.rcca import FinalStats, PowerStats
 
@@ -116,7 +118,7 @@ def touch_heartbeat(cluster_dir: str, shard: int, pass_idx: int) -> None:
 def heartbeat_age(cluster_dir: str, shard: int, pass_idx: int) -> Optional[float]:
     """Seconds since the shard last beat, or None if it never has."""
     try:
-        return max(0.0, time.time() - os.path.getmtime(heartbeat_path(cluster_dir, shard,
+        return max(0.0, obs.wall() - os.path.getmtime(heartbeat_path(cluster_dir, shard,
                                                                       pass_idx)))
     except OSError:
         return None
@@ -152,8 +154,10 @@ def _payload(Q):
 
 def write_round(cluster_dir: str, pass_idx: int, Qa, Qb, meta: dict) -> int:
     """Publish a pass's round; returns the bytes of its leaves."""
-    return save_pytree({"Qa": _payload(Qa), "Qb": _payload(Qb)},
-                       round_dir(cluster_dir, pass_idx), metadata=meta)
+    d = round_dir(cluster_dir, pass_idx)
+    nbytes = save_pytree({"Qa": _payload(Qa), "Qb": _payload(Qb)}, d, metadata=meta)
+    trace_event("commit", d, pass_idx=int(pass_idx))
+    return nbytes
 
 
 def read_round(cluster_dir: str, pass_idx: int, *, wait_s: float = 0.0):
@@ -162,13 +166,14 @@ def read_round(cluster_dir: str, pass_idx: int, *, wait_s: float = 0.0):
     up to ``wait_s`` for the coordinator to publish it (a worker under
     another scheduler may start first)."""
     d = round_dir(cluster_dir, pass_idx)
-    deadline = time.monotonic() + wait_s
+    deadline = obs.monotonic() + wait_s
     while not os.path.exists(os.path.join(d, "manifest.json")):
-        if time.monotonic() >= deadline:
+        if obs.monotonic() >= deadline:
             raise FileNotFoundError(f"no round published for pass {pass_idx} under "
                                     f"{cluster_dir!r}")
         time.sleep(0.05)
     flat, meta = load_flat(d, mapped=True)
+    trace_event("read", d, pass_idx=int(pass_idx))
     Qa, Qb = flat["Qa"], flat["Qb"]
     if meta.get("omega") == "seeded" and pass_idx == 0:
         Qa, Qb = (tuple(int(v) for v in q.tolist()) for q in (Qa, Qb))
@@ -200,14 +205,23 @@ def write_partial(cluster_dir: str, pass_idx: int, group: int, stats, meta: dict
     nbytes = save_pytree(stats._asdict(), staging,
                          metadata={**meta, "group": int(group), "span": int(span),
                                    "shard": int(shard), "n_shards": int(n_shards)})
+    trace_event("stage_write", staging, group=int(group), shard=int(shard))
     try:
         os.rename(staging, final)
+        trace_event("commit", final, group=int(group), shard=int(shard))
     except OSError:
-        if binding_matches(partial_meta(cluster_dir, pass_idx, group, span), meta):
+        existing = partial_meta(cluster_dir, pass_idx, group, span)
+        if binding_matches(existing, meta):
             shutil.rmtree(staging, ignore_errors=True)  # a twin won the race
+            trace_event("twin_drop", final, group=int(group), shard=int(shard))
         else:  # a stale leftover of an earlier fit: replace it
             shutil.rmtree(final, ignore_errors=True)
             os.rename(staging, final)
+            trace_event("stale_replace", final, group=int(group), shard=int(shard),
+                        old_binding={k: existing.get(k) for k in BINDING_KEYS}
+                        if existing else None,
+                        new_binding={k: meta.get(k) for k in BINDING_KEYS})
+            trace_event("commit", final, group=int(group), shard=int(shard))
     return nbytes
 
 
@@ -219,6 +233,7 @@ def read_partial(cluster_dir: str, pass_idx: int, group: int,
     if not os.path.exists(os.path.join(d, "manifest.json")):
         return None
     flat, meta = load_flat(d, mapped=True)
+    trace_event("read", d, group=int(group))
     return _stats_from_flat(flat, meta["kind"]), meta
 
 
@@ -248,7 +263,9 @@ def clear_stale_partial(cluster_dir: str, pass_idx: int, group: int,
     try:
         shutil.rmtree(path)
     except OSError as e:
+        trace_event("clean_fail", path, group=int(group), error=str(e))
         return f"{path}: {e}"
+    trace_event("clean", path, group=int(group))
     return None
 
 

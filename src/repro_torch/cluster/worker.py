@@ -47,6 +47,12 @@ clean-up, as a lost machine would.  ``RCCA_CLUSTER_HANG_AT=<pass>:<chunk>``
 wedges the worker in a sleep loop there (the beacon goes stale, the
 process stays alive).
 
+Under ``RCCA_TRACE`` (inherited from the coordinator) the worker's
+records carry its role ``worker<shard>``: a ``worker_pass`` span around
+its fold, the fold's ``io_wait`` and ``chunk`` spans with their cost,
+a ``publish`` span per partial, the ``kernel_cost`` and ``io``
+counters, and the partial store's protocol events.
+
 The CLI prints one line ``[worker] report {json}`` at the end: the fit
 id, shard, pass, device, schedule, groups folded and published, chunks,
 bytes of partials and cursors, seconds, IO, kernel launches, the peak
@@ -65,7 +71,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import obs
 from ..ckpt import CheckpointManager
+from ..obs.cost import chunk_cost_fn
 from ..core.rcca import (RCCAConfig, seeded_update_fn, stats_init_fn, stats_like,
                          update_fn)
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -142,7 +150,7 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
     coordinator's re-dispatch); ``kill_at_chunk`` injects a crash as
     :data:`KILL_ENV` does.  ``report``, when given, is filled with what
     the CLI prints."""
-    t_start = time.perf_counter()
+    t_start = obs.monotonic()
     dev = resolve_device(device)
     reader = ViewStoreReader(store)
     pt.touch_heartbeat(cluster_dir, shard, pass_idx)  # alive while it waits for the round
@@ -156,6 +164,7 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
     hang_at_chunk = _parse_injection(HANG_ENV, pass_idx)
 
     kind, engine = meta["kind"], meta["engine"]
+    obs.set_context(fit_id=meta.get("fit_id"), role=f"worker{shard:03d}", shard=shard)
     cfg = _config(meta["algo"])
     kt, G, n_chunks = cfg.sketch, int(meta["merge_group"]), reader.n_chunks
     n_groups = -(-n_chunks // G)
@@ -201,12 +210,14 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
 
     def publish_span(g: int, span: int, stats) -> None:
         """The group (or span) sink: publish if new, count, beat."""
-        if not pt.binding_matches(pt.partial_meta(cluster_dir, pass_idx, g, span), expect):
-            state["partial_bytes"] += pt.write_partial(cluster_dir, pass_idx, g, stats, expect,
-                                                       shard=shard, n_shards=n_shards, span=span)
-        state["published"] += 1
-        state["rss_gb"] = max(state["rss_gb"], rss_gb())
-        pt.touch_heartbeat(cluster_dir, shard, pass_idx)
+        with obs.span("publish", group=int(g), span=int(span)):
+            if not pt.binding_matches(pt.partial_meta(cluster_dir, pass_idx, g, span), expect):
+                state["partial_bytes"] += pt.write_partial(cluster_dir, pass_idx, g, stats,
+                                                           expect, shard=shard,
+                                                           n_shards=n_shards, span=span)
+            state["published"] += 1
+            state["rss_gb"] = max(state["rss_gb"], rss_gb())
+            pt.touch_heartbeat(cluster_dir, shard, pass_idx)
 
     combiner = SpanCombiner(combine, publish_span)
 
@@ -295,9 +306,13 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
     acc = SegmentedAccumulator(init_fn, n_chunks, G, sink=publish)
     if current is not None:
         acc.resume_group(current, start_chunk)
+    cost_fn = chunk_cost_fn(kind, engine, kt, cfg.dtype, seeded=seeded)  # None untraced
     try:
-        run_fold(indexed(), upd, acc, Qa, Qb, on_chunk=cb)
-        combiner.flush()  # the trailing short run (end of stream)
+        with obs.span("worker_pass", pass_idx=int(pass_idx), kind=kind, shard=shard,
+                      site="worker"):
+            run_fold(indexed(), upd, acc, Qa, Qb, on_chunk=cb, device=dev, cost_fn=cost_fn,
+                     span_attrs={"kind": kind, "engine": engine, "pass_idx": int(pass_idx)})
+            combiner.flush()  # the trailing short run (end of stream)
     finally:
         combiner.close()
         try:
@@ -314,7 +329,7 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
             published=state["published"], chunks=state["chunks"],
             partial_bytes=state["partial_bytes"], cursor_bytes=state["cursor_bytes"],
             schedule=state["schedule"], resumed_at=start_chunk if current is not None else None,
-            io=src.stats(), residency=rule, seconds=round(time.perf_counter() - t_start, 4),
+            io=src.stats(), residency=rule, seconds=round(obs.monotonic() - t_start, 4),
             rss_peak_gb=state["rss_gb"],
             launches={k: v - launches0.get(k, 0) for k, v in counts.items()
                       if v != launches0.get(k, 0)})

@@ -54,6 +54,10 @@ folds onto either bitwise (:func:`_restore_acc`).
 The streaming ``Sharded`` topology is not ported yet (ROADMAP Queue 1
 item 3); the Cluster and Hybrid topologies are rejected, as the
 reference rejects them.
+
+Under ``RCCA_TRACE`` a refit is one ``delta_refit`` span (mode, old and
+new chunk counts, engine) around its range folds' ``io_wait`` and
+``chunk`` spans.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ckpt import load_flat, save_pytree
 from ..device import DEFAULT_DEVICE, resolve_device
 from .accumulate import MERGE_GROUP_CHUNKS, SegmentedAccumulator
@@ -375,64 +380,66 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
     cap0, capF = state.passes[0], state.passes[q]
     new_meta = {**{k: m[k] for k in STATE_BINDING}, **_store_snapshot(reader)}
     delta = new_nc - old_nc
-    try:
-        if delta == 0:  # nothing appended: re-finalize only
-            accF = restore(capF)
-            res = finalize_result(accF.result(), *eng.boundary_Q(*slots(capF), q, da, db), cfg,
-                                  da, db)
-            res.diagnostics["delta"] = {"mode": mode, "delta_chunks": 0}
-            return res, state
+    with obs.span("delta_refit", mode=mode, old_chunks=old_nc, new_chunks=new_nc,
+                  engine=eng.engine):
+        try:
+            if delta == 0:  # nothing appended: re-finalize only
+                accF = restore(capF)
+                res = finalize_result(accF.result(), *eng.boundary_Q(*slots(capF), q, da, db), cfg,
+                                      da, db)
+                res.diagnostics["delta"] = {"mode": mode, "delta_chunks": 0}
+                return res, state
 
-        # pass 0 over the delta only — exact for both modes: Ω comes from
-        # the seed, not the data
-        Qa0, Qb0 = slots(cap0)
-        t0 = time.perf_counter()
-        acc0 = restore(cap0)
-        restore_s = time.perf_counter() - t0
-        runner.fold(0, cap0.kind, acc0, Qa0, Qb0, start=old_nc)
-        new_cap0 = capture(cap0.kind, acc0, Qa0, Qb0)
+            # pass 0 over the delta only — exact for both modes: Ω comes from
+            # the seed, not the data
+            Qa0, Qb0 = slots(cap0)
+            t0 = time.perf_counter()
+            acc0 = restore(cap0)
+            restore_s = time.perf_counter() - t0
+            runner.fold(0, cap0.kind, acc0, Qa0, Qb0, start=old_nc)
+            new_cap0 = capture(cap0.kind, acc0, Qa0, Qb0)
 
-        if mode == "frozen" and q > 0:
-            # the delta into the final accumulator under the frozen bases
-            QaF, QbF = slots(capF)
-            accF = restore(capF)
-            runner.fold(q, capF.kind, accF, QaF, QbF, start=old_nc)
-            res = finalize_result(accF.result(), QaF, QbF, cfg, da, db)
-            res.diagnostics["delta"] = {"mode": mode, "delta_chunks": delta,
-                                        "refolded_chunks": delta, "restore_s": restore_s,
-                                        "passes": runner.io_passes()}
-            return res, FitState(meta=new_meta,
-                                 passes={0: new_cap0, q: capture(capF.kind, accF, QaF, QbF)})
+            if mode == "frozen" and q > 0:
+                # the delta into the final accumulator under the frozen bases
+                QaF, QbF = slots(capF)
+                accF = restore(capF)
+                runner.fold(q, capF.kind, accF, QaF, QbF, start=old_nc)
+                res = finalize_result(accF.result(), QaF, QbF, cfg, da, db)
+                res.diagnostics["delta"] = {"mode": mode, "delta_chunks": delta,
+                                            "refolded_chunks": delta, "restore_s": restore_s,
+                                            "passes": runner.io_passes()}
+                return res, FitState(meta=new_meta,
+                                     passes={0: new_cap0, q: capture(capF.kind, accF, QaF, QbF)})
 
-        # exact mode (and q = 0, where frozen degenerates to exact): rotate
-        # Q from the whole corpus's pass-0 stats, then re-fold the whole
-        # store for passes 1..q — exactly the cold fit's loop
-        refolded = delta
-        if q == 0:
-            res = finalize_result(acc0.result(), *eng.boundary_Q(Qa0, Qb0, 0, da, db), cfg,
-                                  da, db)
+            # exact mode (and q = 0, where frozen degenerates to exact): rotate
+            # Q from the whole corpus's pass-0 stats, then re-fold the whole
+            # store for passes 1..q — exactly the cold fit's loop
+            refolded = delta
+            if q == 0:
+                res = finalize_result(acc0.result(), *eng.boundary_Q(Qa0, Qb0, 0, da, db), cfg,
+                                      da, db)
+                res.diagnostics["delta"] = {"mode": "exact", "delta_chunks": delta,
+                                            "refolded_chunks": refolded, "restore_s": restore_s,
+                                            "passes": runner.io_passes()}
+                return res, FitState(meta=new_meta, passes={0: new_cap0})
+
+            Qa, Qb = Qa0, Qb0
+            if cfg.center:  # the μ corrections need the actual Ω
+                Qa, Qb = eng.boundary_Q(Qa, Qb, 0, da, db)
+            Qa, Qb = power_update_Q(acc0.result(), Qa, Qb, cfg)
+            acc = None
+            for pass_idx in range(1, q + 1):
+                kind = "power" if pass_idx < q else "final"
+                acc = SegmentedAccumulator(stats_init_fn(kind, da, db, kt, dev), new_nc, G)
+                runner.fold(pass_idx, kind, acc, Qa, Qb)
+                refolded += new_nc
+                if kind == "power":
+                    Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
+            res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
             res.diagnostics["delta"] = {"mode": "exact", "delta_chunks": delta,
                                         "refolded_chunks": refolded, "restore_s": restore_s,
                                         "passes": runner.io_passes()}
-            return res, FitState(meta=new_meta, passes={0: new_cap0})
-
-        Qa, Qb = Qa0, Qb0
-        if cfg.center:  # the μ corrections need the actual Ω
-            Qa, Qb = eng.boundary_Q(Qa, Qb, 0, da, db)
-        Qa, Qb = power_update_Q(acc0.result(), Qa, Qb, cfg)
-        acc = None
-        for pass_idx in range(1, q + 1):
-            kind = "power" if pass_idx < q else "final"
-            acc = SegmentedAccumulator(stats_init_fn(kind, da, db, kt, dev), new_nc, G)
-            runner.fold(pass_idx, kind, acc, Qa, Qb)
-            refolded += new_nc
-            if kind == "power":
-                Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
-        res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
-        res.diagnostics["delta"] = {"mode": "exact", "delta_chunks": delta,
-                                    "refolded_chunks": refolded, "restore_s": restore_s,
-                                    "passes": runner.io_passes()}
-        return res, FitState(meta=new_meta,
-                             passes={0: new_cap0, q: capture("final", acc, Qa, Qb)})
-    finally:
-        runner.close()
+            return res, FitState(meta=new_meta,
+                                 passes={0: new_cap0, q: capture("final", acc, Qa, Qb)})
+        finally:
+            runner.close()

@@ -25,7 +25,9 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..obs.cost import chunk_cost_fn, merge_kernel_costs
 from .accumulate import MERGE_GROUP_CHUNKS, SegmentedAccumulator
 
 
@@ -86,7 +88,7 @@ def n_full_chunks(access) -> int:
 
 
 def run_fold(indexed_chunks, update_fn, acc: SegmentedAccumulator, Qa, Qb, *,
-             on_chunk=None) -> SegmentedAccumulator:
+             on_chunk=None, span_attrs=None, cost_fn=None, device=None) -> SegmentedAccumulator:
     """The canonical chunk-fold loop: each ``(chunk_idx, (a, b))`` left-
     folds into ``acc``'s current merge group; ``acc`` closes groups at
     the canonical boundaries.  ``on_chunk(chunk_idx, acc)`` runs after
@@ -96,13 +98,52 @@ def run_fold(indexed_chunks, update_fn, acc: SegmentedAccumulator, Qa, Qb, *,
     Each chunk is released before the next is pulled, so the source
     makes chunk i+1 while chunk i is already free: at Europarl width a
     chunk pair is 34 GB, and two do not fit beside the bases.
+
+    Under ``RCCA_TRACE`` the loop records an ``io_wait`` span around each
+    pull from the source and a ``chunk`` span around each fold (with
+    ``on_chunk`` inside it), both stamped with ``span_attrs`` and timed on
+    ``device``'s stream when it is a card (``obs.device_span``); a chunk
+    span carries the cost model's ``flops``, ``bytes`` and ``schedule``
+    when ``cost_fn(a, b)`` is given, and one ``kernel_cost`` counter per
+    entry point closes the loop.  With tracing off the loop below runs
+    as it always has.
     """
-    for chunk_idx, (a, b) in indexed_chunks:
-        acc.update(chunk_idx, update_fn, a, b, Qa, Qb)
-        del a, b
-        if on_chunk is not None:
-            on_chunk(chunk_idx, acc)
+    if not obs.enabled():
+        for chunk_idx, (a, b) in indexed_chunks:
+            acc.update(chunk_idx, update_fn, a, b, Qa, Qb)
+            del a, b
+            if on_chunk is not None:
+                on_chunk(chunk_idx, acc)
+        acc.flush_tail()
+        return acc
+
+    base = dict(span_attrs or {})
+    it = iter(indexed_chunks)
+    kernel_parts: list = []
+    while True:
+        with obs.device_span("io_wait", device, **base):
+            item = next(it, None)
+        if item is None:
+            break
+        chunk_idx, (a, b) = item
+        del item
+        attrs = dict(base, chunk=chunk_idx)
+        if cost_fn is not None:
+            cost = cost_fn(a, b)
+            attrs["flops"] = cost["flops"]
+            attrs["bytes"] = cost["bytes"]
+            if cost.get("schedule") is not None:
+                attrs["schedule"] = cost["schedule"]
+            kernel_parts.extend(cost["entries"])
+        with obs.device_span("chunk", device, **attrs):
+            acc.update(chunk_idx, update_fn, a, b, Qa, Qb)
+            del a, b
+            if on_chunk is not None:
+                on_chunk(chunk_idx, acc)
     acc.flush_tail()
+    if kernel_parts:
+        for part in merge_kernel_costs(kernel_parts):
+            obs.counter("kernel_cost", **dict(base, **part))
     return acc
 
 
@@ -219,6 +260,14 @@ class PassEngine:
         ``"recompute"``, ``"a/b"`` when the views differ, None under the
         torch engine).
         """
+        with obs.span("fit", site="stream", engine=self.engine):
+            return self._run_stream(source_factory, da, db, Qa, Qb, seed=seed,
+                                    n_chunks=n_chunks, resume_state=resume_state,
+                                    on_pass_end=on_pass_end,
+                                    on_pass_complete=on_pass_complete)
+
+    def _run_stream(self, source_factory, da, db, Qa, Qb, *, seed, n_chunks, resume_state,
+                    on_pass_end, on_pass_complete):
         from ..core.rcca import finalize_result, power_update_Q, stats_init_fn
 
         cfg = self.cfg
@@ -234,25 +283,26 @@ class PassEngine:
         for pass_idx, kind in pass_schedule(cfg.q):
             if pass_idx < start_pass:
                 continue
-            acc = SegmentedAccumulator.structure(
-                stats_init_fn(kind, da, db, cfg.sketch, self.device), n_chunks,
-                self.merge_group, start_chunk)
-            if acc_state is not None:
-                acc.load_state(acc_state, self.device)
-                acc_state = None
-            cb = None
-            if on_pass_end is not None:
-                cb = (lambda ci, acc_, _p=pass_idx, _qa=Qa, _qb=Qb:
-                      on_pass_end(_p, ci, acc_, _qa, _qb))
-            self.fold_pass(source_factory, pass_idx, kind, acc, Qa, Qb,
-                           start_chunk=start_chunk, on_chunk=cb, schedules=schedules)
-            start_chunk = 0
-            if on_pass_complete is not None:
-                on_pass_complete(pass_idx, kind, acc, Qa, Qb)
-            if kind == "power":
-                if cfg.center:  # the μ corrections need Ω itself
-                    Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)
-                Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
+            with obs.span("pass", pass_idx=pass_idx, kind=kind, site="stream"):
+                acc = SegmentedAccumulator.structure(
+                    stats_init_fn(kind, da, db, cfg.sketch, self.device), n_chunks,
+                    self.merge_group, start_chunk)
+                if acc_state is not None:
+                    acc.load_state(acc_state, self.device)
+                    acc_state = None
+                cb = None
+                if on_pass_end is not None:
+                    cb = (lambda ci, acc_, _p=pass_idx, _qa=Qa, _qb=Qb:
+                          on_pass_end(_p, ci, acc_, _qa, _qb))
+                self.fold_pass(source_factory, pass_idx, kind, acc, Qa, Qb,
+                               start_chunk=start_chunk, on_chunk=cb, schedules=schedules)
+                start_chunk = 0
+                if on_pass_complete is not None:
+                    on_pass_complete(pass_idx, kind, acc, Qa, Qb)
+                if kind == "power":
+                    if cfg.center:  # the μ corrections need Ω itself
+                        Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)
+                    Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
         Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
         res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
         res.diagnostics["schedules"] = schedules
@@ -275,7 +325,16 @@ class PassEngine:
             fn = self._recording(fn, kind, kt, seeded, schedules)
         source, offset = open_source(source_factory, start_chunk)
         return run_fold(self._indexed_on_device(source, offset, start_chunk), fn, acc, Qa, Qb,
-                        on_chunk=on_chunk)
+                        on_chunk=on_chunk, device=self.device,
+                        span_attrs={"kind": kind, "engine": self.engine, "pass_idx": pass_idx},
+                        cost_fn=self.cost_fn(kind, seeded))
+
+    def cost_fn(self, kind: str, seeded: bool):
+        """The cost model's ``(a, b) -> flops/bytes`` closure for one pass's
+        chunk updates, or None when tracing is off (or under the torch
+        engine, whose launches carry no cost)."""
+        return chunk_cost_fn(kind, self.engine, int(self.cfg.sketch), self.cfg.dtype,
+                             seeded=seeded)
 
     def _recording(self, fn, kind: str, kt: int, seeded: bool, schedules: list):
         """``fn``, appending to ``schedules`` the schedule the kernels

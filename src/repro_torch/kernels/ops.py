@@ -75,7 +75,7 @@ from __future__ import annotations
 import functools
 
 from . import build, plan
-from .matmul import matmul_nn, matmul_tn
+from .matmul import cuda_form, matmul_nn, matmul_tn
 from .powerpass import (choose_powerpass_schedule, power_project_accumulate,
                         power_project_accumulate_seeded, powerpass_sweep, proj_stage,
                         proj_stage_seeded)
@@ -153,27 +153,74 @@ def gram_accumulate(p):
     return gram_sweep(p)
 
 
+def _label(entry: str, *dtypes) -> str:
+    """The name the launch counters give ``entry`` on operands of ``dtypes``."""
+    return cuda_form(entry, *dtypes).label
+
+
+def _per_call(label: str, plans, calls: int) -> list:
+    """``plans``, the launches of ``calls`` equal entry-point calls in a
+    row (one per recompute bucket), as ``[(label, one call's plans)]``."""
+    per = len(plans) // calls
+    return [(label, plans[i * per:(i + 1) * per]) for i in range(calls)]
+
+
 def _power_view(n, d_out, d_in, kt, seeded, schedule, dtype):
-    """(launch plans, resolved schedule) of one view's ΔY update, as the
-    engine runs it: accumulating into Y."""
+    """(``[(entry-point label, its launch plans), ...]``, resolved
+    schedule) of one view's ΔY update, as the engine runs it:
+    accumulating into Y."""
     sched = (plan.check_schedule(schedule) if schedule else
              choose_powerpass_schedule(n, d_out, d_in, kt, seeded=seeded, accumulate=True,
                                        dtype=dtype))
     if sched == "staged":
-        return plan.plan_powerpass_staged(n, d_out, d_in, kt, accumulate=True,
-                                          seeded=seeded, dtype=dtype), sched
-    rec = (plan.plan_power_project_accumulate_seeded if seeded
-           else plan.plan_power_project_accumulate)
-    return rec(n, d_out, d_in, kt, accumulate=True, dtype=dtype), sched
+        if seeded:
+            stage = [(_label("proj_stage_seeded", dtype),
+                      plan.plan_proj_stage_seeded(n, d_in, kt, dtype=dtype))]
+        else:
+            stage = [(_label("proj_stage", dtype, dtype),
+                      plan.plan_proj_stage(n, d_in, kt, dtype=dtype))]
+        return stage + [(_label("powerpass_sweep", dtype, plan.F32),
+                         plan.plan_powerpass_sweep(n, d_out, kt, accumulate=True, dtype=dtype,
+                                                   p_dtype=plan.F32))], sched
+    if seeded:
+        label = _label("power_project_accumulate_seeded", dtype, dtype)
+        rec = plan.plan_power_project_accumulate_seeded
+    else:
+        label = _label("power_project_accumulate", dtype, dtype, dtype)
+        rec = plan.plan_power_project_accumulate
+    return _per_call(label, rec(n, d_out, d_in, kt, accumulate=True, dtype=dtype),
+                     len(plan.buckets(d_out, kt))), sched
 
 
 def _final_view(n, d, kt, seeded, schedule, dtype):
     sched = (plan.check_schedule(schedule) if schedule else
              choose_projgram_schedule(n, d, kt, seeded=seeded, dtype=dtype))
     if sched == "staged":
-        return plan.plan_projgram_staged(n, d, kt, seeded=seeded, dtype=dtype), sched
-    rec = plan.plan_projgram_seeded if seeded else plan.plan_projgram
-    return rec(n, d, kt, dtype=dtype), sched
+        if seeded:
+            stage = [(_label("proj_stage_seeded", dtype),
+                      plan.plan_proj_stage_seeded(n, d, kt, dtype=dtype))]
+        else:
+            stage = [(_label("proj_stage", dtype, dtype),
+                      plan.plan_proj_stage(n, d, kt, dtype=dtype))]
+        return stage + [(_label("gram_sweep", plan.F32), plan.plan_gram_sweep(n, kt))], sched
+    if seeded:
+        label, rec = _label("projgram_seeded", dtype), plan.plan_projgram_seeded
+    else:
+        label, rec = _label("projgram", dtype, dtype), plan.plan_projgram
+    return _per_call(label, rec(n, d, kt, dtype=dtype), len(plan.buckets(kt, kt))), sched
+
+
+def merge_kernel_costs(parts: list) -> list:
+    """Sum ``{"kernel", "flops", "bytes"[, "calls"]}`` cost entries by
+    ``kernel`` (first-seen order; an entry without ``calls`` is one)."""
+    out: dict[str, dict] = {}
+    for p in parts:
+        t = out.setdefault(p["kernel"], {"kernel": p["kernel"], "calls": 0, "flops": 0,
+                                         "bytes": 0})
+        t["calls"] += p.get("calls", 1)
+        t["flops"] += p["flops"]
+        t["bytes"] += p["bytes"]
+    return list(out.values())
 
 
 def _join_schedules(*scheds):
@@ -192,31 +239,36 @@ def chunk_cost(kind: str, n: int, da: int, db: int, kt: int, *, engine: str = "k
     launch plans.
 
     Returns ``{"flops", "bytes", "kernels": [{"kernel", "calls", "flops",
-    "bytes"}, ...], "schedule"}``; ``schedule`` is what the kernels
+    "bytes"}, ...], "entries": [...], "schedule"}``: ``kernels`` per CUDA
+    kernel, ``entries`` the same work per entry point under the names
+    :func:`launch_counts` counts (``proj_stage``, ``projgram[bf16]``, ...;
+    a recompute call per bucket); ``schedule`` is what the kernels
     resolve for this shape (``schedule`` forces it), None for the torch
     engine, whose launches are PyTorch's and are not modelled.  Memoized
     per shape: treat the returned dict as read-only."""
     if engine != "kernels":
-        return {"flops": None, "bytes": None, "kernels": [], "schedule": None}
+        return {"flops": None, "bytes": None, "kernels": [], "entries": [], "schedule": None}
     if kind == "power":
-        pa, sa = _power_view(n, da, db, kt, seeded, schedule, dtype)
-        pb, sb = _power_view(n, db, da, kt, seeded, schedule, dtype)
-        launches = pa + pb
+        ea, sa = _power_view(n, da, db, kt, seeded, schedule, dtype)
+        eb, sb = _power_view(n, db, da, kt, seeded, schedule, dtype)
+        calls = ea + eb
     elif kind == "final":
-        pa, sa = _final_view(n, da, kt, seeded, schedule, dtype)
-        pb, sb = _final_view(n, db, kt, seeded, schedule, dtype)
-        launches = pa + pb + plan.plan_matmul_tn(n, kt, kt)
+        ea, sa = _final_view(n, da, kt, seeded, schedule, dtype)
+        eb, sb = _final_view(n, db, kt, seeded, schedule, dtype)
+        calls = ea + eb + [(_label("matmul_tn", plan.F32, plan.F32),
+                            plan.plan_matmul_tn(n, kt, kt))]
     else:
         raise ValueError(f"unknown pass kind {kind!r}")
-    kernels: dict[str, dict] = {}
-    for p in launches:
-        k = kernels.setdefault(p.kernel, {"kernel": p.kernel, "calls": 0, "flops": 0,
-                                          "bytes": 0})
-        k["calls"] += 1
-        k["flops"] += p.flops
-        k["bytes"] += p.bytes
+    launches = [p for _, plans in calls for p in plans]
     flops, nbytes = plan.cost(launches)
-    return {"flops": flops, "bytes": nbytes, "kernels": list(kernels.values()),
+    entries = []
+    for label, plans in calls:
+        f, b = plan.cost(plans)
+        entries.append({"kernel": label, "flops": f, "bytes": b})
+    return {"flops": flops, "bytes": nbytes,
+            "kernels": merge_kernel_costs([{"kernel": p.kernel, "flops": p.flops,
+                                            "bytes": p.bytes} for p in launches]),
+            "entries": merge_kernel_costs(entries),
             "schedule": _join_schedules(sa, sb)}
 
 

@@ -19,6 +19,8 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
         --data /tmp/s --ckpt-dir /tmp/c --resume
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
         --data /tmp/s --ingest --topology cluster --workers 2
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --trace /tmp/t
+    PYTHONPATH=src python -m repro_torch.obs export-trace /tmp/t -o /tmp/t.json
 
 Port of ``repro/launch/cca_fit.py``, modes ``stream`` (the port's
 default; the reference defaults to ``dist``) and ``dist``.  Stream is the
@@ -74,6 +76,14 @@ are as many cards as ranks, else they share the cards over gloo, whose
 all-reduce stages CUDA tensors through the host.  The kernels are built
 before the ranks start.
 
+``--trace [DIR]`` records a :mod:`repro_torch.obs` trace of the fit
+(``RCCA_TRACE``, inherited by cluster workers; default directory
+``rcca_trace/``): the fit, pass, io_wait and chunk spans (timed on the
+card's stream as well as the host's clock), the cost model's
+``kernel_cost`` and the prefetchers' ``io`` counters, the coordinator's
+and workers' spans and the protocol events; the report (``python -m
+repro_torch.obs report DIR``) is printed after the fit.
+
 ``--n-chunks`` cuts n to that many chunks; ``--k``, ``--p`` and ``--q``
 override the configuration's (the paper ran p ∈ {910, 2000}), and
 ``--center`` mean-centers both views.  Prints
@@ -98,6 +108,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..configs.europarl_cca import CCAWorkload, config, smoke_config
 from ..core.exact import exact_cca, feasibility_errors
 from ..core.rcca import (DEFAULT_ENGINE, OMEGA_MODES, RCCAResult, draw_omega,
@@ -591,7 +602,15 @@ def main(argv=None):
     ap.add_argument("--cluster-dir", default=None,
                     help="the cluster's rounds, partials, cursors, heartbeats and logs "
                          "(default <store>.cluster)")
+    ap.add_argument("--trace", default=None, metavar="DIR", nargs="?", const="1",
+                    help="record a repro_torch.obs trace of the fit (spans and roofline "
+                         "counters for every pass, chunk, worker and kernel; cluster workers "
+                         "inherit it) and print its report after the fit; DIR defaults to "
+                         "rcca_trace/")
     args = ap.parse_args(argv)
+    if args.trace:
+        os.environ[obs.TRACE_ENV] = args.trace  # before any worker is spawned
+        print(f"[cca] tracing -> {obs.trace_dir()}/ (report after the fit)", flush=True)
     prefetch = args.prefetch if args.prefetch == "auto" else int(args.prefetch)
 
     wl = smoke_config() if args.smoke else config()
@@ -704,6 +723,10 @@ def main(argv=None):
         rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         print(f"[cca] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
               f"peak host RSS {rss_kib * 1024 / 1e9:.2f} GB (closed merge groups live there)")
+    if args.trace:
+        from ..obs import report as obs_report
+
+        print(obs_report.render(obs_report.analyze(obs.trace_dir())), flush=True)
 
     if args.smoke:
         rows = None

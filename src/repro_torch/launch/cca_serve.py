@@ -32,8 +32,12 @@ its ``[serve]`` lines:
 Beyond the reference's flags: ``--device`` (the card by default; ``cpu``
 runs the plain versions), ``--engine kernels|torch`` (the projection and
 the fit's per-chunk update: the CUDA kernels, or ``torch.matmul`` and the
-plain updates).  ``--topology sharded`` and ``--trace`` are not ported
-yet and exit with the ROADMAP item that brings them.  Exits non-zero when
+plain updates).  ``--trace [DIR]`` records a ``repro_torch.obs`` trace
+(``RCCA_TRACE``, default directory ``rcca_trace/``): the fit's and the
+refit's spans, the serving spans and the drift, swap, occupancy and
+registry counters; the report is printed at the end.  ``--topology
+sharded`` is not ported yet and exits with the ROADMAP item that brings
+it.  Exits non-zero when
 the drift is not flagged, a request is dropped, the swap does not show
 both versions, or the correlation does not recover.
 """
@@ -49,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import obs
 from ..core.rcca import DEFAULT_ENGINE, OMEGA_MODES, RCCAConfig
 from ..data.synthetic import PlantedCCAData
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -86,7 +91,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "keeping the newest N (the current version and its rollback target "
                          "are always kept)")
     ap.add_argument("--trace", default=None, metavar="DIR", nargs="?", const="1",
-                    help="record a trace (not ported yet: ROADMAP Queue 1 item 2)")
+                    help="record a repro_torch.obs trace (spans of the fit, the refit and "
+                         "the serve batches; drift, swap, occupancy and registry counters) "
+                         "and print its report at the end; DIR defaults to rcca_trace/")
     return ap.parse_args(argv)
 
 
@@ -98,9 +105,8 @@ def serve(args: argparse.Namespace) -> dict:
     from ..store import ViewStoreReader, extend_chunks, ingest_chunks, store_exists
 
     if args.trace:
-        raise SystemExit("[serve] --trace: the port's obs layer is not ported yet (ROADMAP "
-                         "Queue 1 item 2: the serve_batch span, the serve_occupancy, "
-                         "serve_swap, drift, drift_signal and registry counters)")
+        os.environ[obs.TRACE_ENV] = args.trace
+        print(f"[serve] tracing -> {obs.trace_dir()}/", flush=True)
     if args.topology == "sharded":
         raise SystemExit("[serve] --topology sharded: the streaming Sharded topology is not "
                          "ported yet (ROADMAP Queue 1 item 3); use --topology local")
@@ -226,6 +232,10 @@ def serve(args: argparse.Namespace) -> dict:
     if args.prune_keep is not None:
         pruned = reg.prune(args.name, keep=args.prune_keep)
         print(f"[serve] pruned versions {pruned} (keep={args.prune_keep})", flush=True)
+    if args.trace:
+        from ..obs import report as obs_report
+
+        print(obs_report.render(obs_report.analyze(obs.trace_dir())), flush=True)
     print(f"[serve] registry {args.registry}: {args.name} versions {reg.versions(args.name)}, "
           f"current v{reg.current_version(args.name)}", flush=True)
     rep.update(v1=v1, v2=v2, baseline=baseline, shifted=mean, recovered=recovered,

@@ -15,9 +15,11 @@ The serving half of the incremental-fit path
   traffic raises the refit-needed signal that feeds
   :func:`repro_torch.exec.delta_refit` (:mod:`repro_torch.serve.drift`).
 
-``python -m repro_torch.launch.cca_serve`` drives the whole loop.  The
-reference's trace hooks (its ``serve_batch`` span and its occupancy,
-swap, drift and registry counters) wait for the port of ``obs``.
+``python -m repro_torch.launch.cca_serve`` drives the whole loop.  Under
+``RCCA_TRACE`` (:mod:`repro_torch.obs`) the tier records the
+``serve_batch`` and ``index_build`` spans and the ``serve_occupancy``,
+``serve_swap``, ``drift``, ``drift_signal``, ``registry_publish`` and
+``registry_prune`` counters.
 """
 
 from .drift import DriftMonitor, paired_correlation

@@ -23,6 +23,7 @@ from typing import Callable, Deque, Optional
 
 import numpy as np
 
+from .. import obs
 from .projector import _engine, project
 from .registry import ServedModel
 
@@ -99,10 +100,15 @@ class DriftMonitor:
         self.windows_evaluated += 1
         if self.baseline is None:
             self.baseline = mean
+            obs.counter("drift", version=self.model.version, mean=mean, baseline=mean, ratio=1.0)
             return mean
         ratio = mean / self.baseline if self.baseline > 0 else 1.0
+        obs.counter("drift", version=self.model.version, mean=mean, baseline=self.baseline,
+                    ratio=ratio)
         if ratio < self.threshold and not self.refit_needed:
             self.refit_needed = True
+            obs.counter("drift_signal", version=self.model.version, mean=mean,
+                        baseline=self.baseline, ratio=ratio)
             if self.on_refit_needed is not None:
                 self.on_refit_needed(self)
         return mean

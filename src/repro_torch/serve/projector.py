@@ -26,6 +26,10 @@ plain version.
 Padding: a batch of r requests is padded to the next power of two (at
 most ``max_batch``), so the projection sees a handful of shapes.
 
+Under ``RCCA_TRACE`` each batch is a ``serve_batch`` span (occupancy,
+version) with a ``serve_occupancy`` counter, each swap a ``serve_swap``
+counter, and an index build an ``index_build`` span.
+
 :class:`CorpusIndex` holds one view's projected corpus for cross-view
 top-k retrieval: score(query, row) = Σ_k ρ_k·φ_k(query)·φ_k(row).
 """
@@ -41,6 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .registry import ServedModel
 
 ENGINES = ("kernels", "torch")
@@ -212,6 +217,7 @@ class BatchedProjector:
             if self._pending_model is not None:  # batch boundary
                 self._model, self._pending_model = self._pending_model, None
                 self.swaps += 1
+                obs.counter("serve_swap", version=self._model.version)
             batch = [self._queue.popleft() for _ in range(min(len(self._queue), self.max_batch))]
             self.batches += 1
             self.requests += len(batch)
@@ -238,7 +244,8 @@ class BatchedProjector:
     def _run_batch(self, model: ServedModel, batch: List[_Ticket]) -> None:
         dev = model.device
         t0 = time.perf_counter()
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        with obs.span("serve_batch", occupancy=len(batch), version=model.version), \
+                torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
             for view in ("a", "b"):
                 group = [t for t in batch if t.view == view]
                 if not group:
@@ -259,6 +266,8 @@ class BatchedProjector:
                 except BaseException as e:  # complete, never strand
                     for t in group:
                         t.fail(e)
+            obs.counter("serve_occupancy", occupancy=len(batch), max_batch=self.max_batch,
+                        version=model.version)
         with self._cond:
             self._batch_s += time.perf_counter() - t0
 
@@ -294,14 +303,15 @@ class CorpusIndex:
         reader = store if isinstance(store, ViewStoreReader) else ViewStoreReader(store)
         X = model.Xa if view == "a" else model.Xb
         parts, rows = [], 0
-        for i in range(reader.n_chunks):
-            a, b = reader.read_chunk(i)  # views of the shard maps
-            block = as_tensor(a if view == "a" else b, reader.dtype)
-            parts.append(project(X, block, engine).cpu().numpy())
-            rows += block.shape[0]
-            del a, b, block
-            if max_rows is not None and rows >= max_rows:
-                break
+        with obs.span("index_build", view=view, n=reader.n):
+            for i in range(reader.n_chunks):
+                a, b = reader.read_chunk(i)  # views of the shard maps
+                block = as_tensor(a if view == "a" else b, reader.dtype)
+                parts.append(project(X, block, engine).cpu().numpy())
+                rows += block.shape[0]
+                del a, b, block
+                if max_rows is not None and rows >= max_rows:
+                    break
         emb = np.concatenate(parts)
         return cls(model, view, emb if max_rows is None else emb[:max_rows])
 

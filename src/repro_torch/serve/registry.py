@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..ckpt import load_flat, load_metadata, save_pytree
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..dtypes import bits_view, logical_name
@@ -186,6 +187,7 @@ class ModelRegistry:
             digest = pool.submit(_content_hash, arrays)
             save_pytree(arrays, self._version_dir(name, version),  # staged + renamed
                         metadata=lambda: {**meta, "content_sha256": digest.result()})
+        obs.counter("registry_publish", model=name, version=version)
         if make_current:
             self.set_current(name, version)
         return version
@@ -270,4 +272,7 @@ class ModelRegistry:
                 continue  # a concurrent prune got it first
             shutil.rmtree(trash, ignore_errors=True)
             pruned.append(version)
+        if pruned:
+            obs.counter("registry_prune", model=name, n=len(pruned),
+                        kept=len(versions) - len(pruned))
         return pruned

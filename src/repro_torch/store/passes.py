@@ -35,11 +35,11 @@ from __future__ import annotations
 import math
 import os
 import threading
-import time
 from typing import Optional, Union
 
 import torch
 
+from .. import obs
 from ..ckpt import CheckpointManager
 from ..ckpt.checkpoint import flatten
 from ..core.rcca import (DEFAULT_ENGINE, RCCAConfig, RCCAResult, algo_meta, resolve_engine,
@@ -165,6 +165,11 @@ class _CalibratingSource:
         return own
 
     def close(self) -> None:
+        if self.chunks:  # the calibration window's inline reads (the pipeline
+            # swapped in after it records its own ``io`` counter)
+            obs.counter("io", site="calibration", chunks=self.chunks, rows=self.rows,
+                        bytes=self.bytes, read_s=round(self.read_s, 4),
+                        io_stall_s=round(self.read_s, 4))
         if self._inner is not None:
             self._inner.close()
 
@@ -268,7 +273,7 @@ class PassRunner:
                                     staging=staging)
         self._live_staging = staging
         self._calib_last_t = None  # pass boundary: no carry-over delta
-        self._pass_t0 = time.perf_counter()
+        self._pass_t0 = obs.monotonic()
         return self._live
 
     def _harvest_live(self) -> None:
@@ -284,7 +289,7 @@ class PassRunner:
         st = live.stats()
         for k, v in st.items():
             self._io[k] += v
-        seconds = time.perf_counter() - self._pass_t0
+        seconds = obs.monotonic() - self._pass_t0
         self._passes.append({**st, "seconds": round(seconds, 4), "prefetch_depth": self._depth(),
                              "gb_per_s": round(st["bytes"] / seconds / 1e9, 4) if seconds else 0.0})
 
@@ -328,13 +333,13 @@ class PassRunner:
         return torch.tensor(Q, dtype=torch.int64) if isinstance(Q, tuple) else Q
 
     def _save_cursor(self, pass_idx: int, chunk_idx: int, acc, Qa, Qb) -> None:
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         step = pass_idx * 1_000_000 + chunk_idx
         nbytes = self.mgr.save(
             step, {"acc": acc.state(), "Qa": self._payload(Qa), "Qb": self._payload(Qb)},
             metadata=self._meta(pass_idx, chunk_idx + 1))  # acc already holds chunk_idx
         self._cursors.append({"pass_idx": pass_idx, "next_chunk": chunk_idx + 1,
-                              "bytes": nbytes, "save_s": round(time.perf_counter() - t0, 4)})
+                              "bytes": nbytes, "save_s": round(obs.monotonic() - t0, 4)})
 
     def _seeds_in_slots(self, pass_idx: int) -> bool:
         return self.omega == "seeded" and self.engine == "kernels" and pass_idx == 0
@@ -375,7 +380,7 @@ class PassRunner:
                 f"pass cursor omega {meta.get('omega', 'materialized')!r} != runner omega "
                 f"{self.omega!r} — Ω provenance is part of the pass state (pass-0 cursors "
                 "may hold seeds, not bases)")
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         pass_idx, next_chunk = int(meta["pass_idx"]), int(meta["next_chunk"])
         r, kt = self.reader, self.cfg.sketch
         kind = "final" if pass_idx == self.cfg.q else "power"
@@ -398,7 +403,7 @@ class PassRunner:
             Qa, Qb = (tree[k].to(self.device) for k in ("Qa", "Qb"))
         nbytes = sum(t.numel() * t.element_size() for t in flatten(tree).values())
         self._restored = {"pass_idx": pass_idx, "next_chunk": next_chunk, "bytes": nbytes,
-                          "restore_s": round(time.perf_counter() - t0, 4)}
+                          "restore_s": round(obs.monotonic() - t0, 4)}
         return {"pass_idx": pass_idx, "chunk_idx": next_chunk, "acc": acc, "Qa": Qa, "Qb": Qb}
 
     # -- driving ---------------------------------------------------------------
@@ -433,7 +438,7 @@ class PassRunner:
                 # calibration: wait for every chunk; its compute time is the
                 # gap since the previous one less its read
                 sync()
-                now = time.perf_counter()
+                now = obs.monotonic()
                 if self._calib_last_t is not None and \
                         len(self._calib_reads) > len(self._calib_computes) + 1:
                     read = self._calib_reads[len(self._calib_computes) + 1]
@@ -487,7 +492,7 @@ class PassRunner:
         self._io = self._zero_io()
         self._passes, self._cursors = [], []
         self._start_rule()
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         cb = self._chunk_callback(on_chunk)
 
         def pc(pass_idx, kind, acc, Qa_, Qb_):
@@ -501,7 +506,7 @@ class PassRunner:
                 on_pass_end=cb, on_pass_complete=pc, n_chunks=r.n_chunks)
         finally:
             self._harvest_live()
-        wall = time.perf_counter() - t0
+        wall = obs.monotonic() - t0
         rows = self._io["rows"]
         res.diagnostics["io"] = {
             **{k: round(v, 4) if isinstance(v, float) else v for k, v in self._io.items()},

@@ -23,7 +23,8 @@ Both prefetchers meter the pipeline as the reference's do: ``read_s``
 (the producer's reads: disk or page cache into memory), ``stall_s`` (the
 consumer blocked on the queue), ``chunks``, ``rows`` and ``bytes``.  An
 error in the producer reaches the consumer at the failing chunk; one the
-consumer never reached is raised by ``close()``.
+consumer never reached is raised by ``close()``, which also records the
+prefetcher's ``io`` trace counter (its site and those numbers).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Iterable, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..dtypes import as_tensor, bits_view, logical_name
 from ..exec.accumulate import host_buffer, unlock
 
@@ -257,6 +259,14 @@ def _stats(m) -> dict:
             "read_s": round(m.read_s, 4), "io_stall_s": round(m.stall_s, 4)}
 
 
+def _emit_io(m) -> None:
+    """The ``io`` trace counter of a closing prefetcher, once: its site
+    and :func:`_stats` (nothing when it read nothing)."""
+    if (m.chunks or m.read_s) and not getattr(m, "_counted", False):
+        m._counted = True
+        obs.counter("io", site=m.site, **m.stats())
+
+
 class ChunkPrefetcher:
     """Iterate ``chunks`` with a background read (and, on a card, copy)
     thread, ``depth`` chunks ahead.  Single use: ``close()`` (or running
@@ -343,6 +353,7 @@ class ChunkPrefetcher:
         self._thread.join(timeout=120.0)
         if self._thread.is_alive():
             raise RuntimeError(f"{self.site}: the producer thread did not stop")
+        _emit_io(self)
         if self._error is not None and not self._delivered:
             self._delivered = True
             raise self._error
@@ -384,7 +395,7 @@ class SyncChunkMeter:
         return self._staging.deliver(staged)
 
     def close(self) -> None:
-        pass
+        _emit_io(self)
 
     def stats(self) -> dict:
         return _stats(self)
