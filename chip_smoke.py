@@ -81,7 +81,7 @@ Phases, each of which fails the run by raising:
    device memory; then the paper's other oversampling, ``--p 910``
    (k̃ = 970), where the final pass recomputes: kernels engine (2
    ``projgram`` + 1 ``matmul_tn`` per final chunk, no ``gram_sweep``)
-   against the torch engine (``P910_CHUNKS`` = 8), and ``--q 0 --omega
+   against the torch engine (``P910_CHUNKS`` = 4), and ``--q 0 --omega
    seeded`` bitwise ``--omega seeded-materialized`` (``PAIR_CHUNKS``);
 8. matmul_nn — ``matmul_nn`` (the port of ``_mm_nn_kernel``) at one
    microbatch of one model shard at Europarl width (4096 × 2^18 · 2^18 ×
@@ -101,8 +101,11 @@ Phases, each of which fails the run by raising:
    atol 0.02 of fused, each rank's peak memory printed; then one job at the
    smoke width, centered, on four ranks (1 × 2 × 2, where the row and the
    column sums are both real; each collective in f32 and bf16, then
-   1 × 4 × 1 in bf16).  Each fit resets its ranks' launch counters, and
-   each rank reports its own;
+   1 × 4 × 1 in bf16), where one more f32 fit reads each rank's rows from
+   a view store of the same rows (``--mode dist --data``) and must match
+   the in-memory fused fit within tests/test_torch_dist.py's tolerances.
+   Each fit resets its ranks' launch counters, and each rank reports its
+   own;
 10. bf16 kernels — the eight bf16-operand forms (``proj_stage[bf16]``,
     ``matmul_nn[bf16]``, ``powerpass_sweep[bf16]`` and ``[bf16,f32]``,
     ``matmul_tn[bf16]``, ``gram_sweep[bf16]``, ``projgram[bf16]``,
@@ -147,7 +150,8 @@ Phases, each of which fails the run by raising:
 13. stream bf16 (after phase 7) — ``cca_fit --compute-dtype bfloat16``:
     at Europarl width (p = 2000, both passes staged) ``--omega seeded``
     bitwise ``seeded-materialized`` (``PAIR_CHUNKS``), the kernels engine
-    against the torch engine (16 chunks, |Δρ| ≤ 1e-3); ``--p 910 --q 0``
+    against the torch engine (``BF16_PAIR_CHUNKS`` = 4, |Δρ| ≤ 1e-3);
+    ``--p 910 --q 0``
     seeded bitwise its oracle (``PAIR_CHUNKS``); the smoke width, centered (both
     passes recompute):
     seeded bitwise its oracle, kernels against torch.  Each fit prints its
@@ -156,10 +160,18 @@ Phases, each of which fails the run by raising:
 14. store — the out-of-core main path (``phase_store``): store-backed
     fits bitwise the in-memory fits at the smoke and Europarl widths,
     prefetch 0 ≡ 2 ≡ auto, kill → resume bitwise, IO per pass, cursors;
-15. cluster (inside phase 14, on its stores) — the Cluster topology
-    (``phase_cluster``): at the smoke width two workers, combine 1 with one
-    worker killed and re-dispatched and combine 2, bitwise the Local fit;
-    at Europarl width the Local store fit with ``--omega seeded``, then the
+15. cluster (inside phase 14, on its stores) — the Cluster, Sharded and
+    Hybrid topologies (``phase_cluster``): at the smoke width the streaming
+    ``Sharded`` fit over two slots on the card (two streams), bitwise the
+    Local fit with its launches (``sharded_smoke``), then on threads two
+    workers, combine 1 with one worker killed and re-dispatched and combine
+    2, and ``Hybrid(2, 2)`` with every slot on the card, clean and with a
+    worker killed after its first group (its other group re-dispatched):
+    each bitwise the Local fit, the clean ones with its launches summed
+    over the workers; at Europarl width the Local store fit with ``--omega
+    seeded``, then, alone on the card, the same store's ``Sharded`` fit
+    over two slots (``sharded_europarl``: bitwise it, its launches, pass
+    times, peak memory and each batch's slot device seconds), then the
     cluster fit of the same store in a child process (two workers sharing
     the card), bitwise it, its launches summed over the workers the Local
     fit's, every worker on ``cuda:0``, each pass's publish, barrier, merge
@@ -173,7 +185,8 @@ Phases, each of which fails the run by raising:
     beside phase 15's cluster child, ``cca_serve --smoke`` under both
     engines (the kernels one with ``--trace``: its refit, index, batch,
     swap, registry and drift spans and counters) and the delta-refit
-    contracts (``serve_child``); at Europarl
+    contracts, the Sharded ``fit_with_state`` → ``delta_refit`` pair
+    among them (``serve_child``); at Europarl
     width phase 14's store is written in two steps (its first 8 chunks
     while the kernels build) and ``fit_with_state`` (seeded) runs on the
     first 8 chunks; its FitState is saved beside phase 14's fits, and
@@ -232,9 +245,15 @@ N_CHUNKS = 16  # two merge groups of 8: the pairwise tree merges once
 # and p = 910 q = 0): part of a merge group, where their contract holds as
 # at any depth (cut from 16 to 8, to 4, then to 2, for the time limit)
 PAIR_CHUNKS = 2
-# the p = 910 kernels-against-torch pair: one merge group (cut from 16 for
-# the time limit)
-P910_CHUNKS = 8
+# the p = 910 kernels-against-torch pair: part of one merge group (cut from
+# 16 to 8, then to 4, for the time limit)
+P910_CHUNKS = 4
+# the bf16 kernels-against-torch pair: part of one merge group, where the
+# engines' agreement holds as at any depth (cut from 16 for the time limit;
+# the 16-chunk f32 fits keep the tree's merge of full-width stats)
+BF16_PAIR_CHUNKS = 4
+# the streaming Sharded topology's slots on the one card: two streams
+SHARDED_SLOTS = ("cuda:0", "cuda:0")
 # timed runs of a plain version at the main path's shapes, after its warm-up
 # (a yardstick, not a kernel: cut from 3 for the time limit)
 PLAIN_REPS = 1
@@ -1389,6 +1408,29 @@ def dist_checks(reps: dict, nb: int, label: str, bf16: bool = False) -> None:
             raise AssertionError(f"{label}: rho leaves [0, 1]")
 
 
+def dist_store_check(got, want) -> None:
+    """``--mode dist --data``: the fit whose ranks read their rows from the
+    store against the same job's fit of the rows made in memory, at
+    tests/test_torch_dist.py's tolerances (ρ rtol 1e-4 / atol 1e-5; |Xa|,
+    |Xb| rtol 5e-3 / atol 1e-4: the rows' columns are made whole on the
+    card or read, and the products may round apart), with the same
+    launches per rank and pass."""
+    import numpy as np
+
+    rho_ok_ = np.allclose(got.result.rho.numpy(), want.result.rho.numpy(), rtol=1e-4, atol=1e-5)
+    x_ok = all(np.allclose(np.abs(getattr(got.result, f).cpu().numpy()),
+                           np.abs(getattr(want.result, f).cpu().numpy()), rtol=5e-3, atol=1e-4)
+               for f in ("Xa", "Xb"))
+    same = [ra["pass_launches"] == rb["pass_launches"] for ra, rb in zip(got.ranks, want.ranks)]
+    gap = float(np.abs(got.result.rho.numpy() - want.result.rho.numpy()).max())
+    print(f"[smoke] dist smoke, rows from the store: max |Δrho| vs in memory {gap:.3e} (rtol "
+          f"1e-4, atol 1e-5): {rho_ok_}; |Xa|, |Xb| within rtol 5e-3 / atol 1e-4: {x_ok}; "
+          f"launches per rank as in memory: {same}", flush=True)
+    if not (rho_ok_ and x_ok and all(same)):
+        raise AssertionError("dist smoke: the fit from the store disagrees with the fit of "
+                             "the same rows in memory")
+
+
 def phase_dist(dev):
     """The sharded fit (``cca_fit.fit_dist_runs``, the ``--mode dist`` path):
     at Europarl width (one 8192-row chunk, p = 2000) two ranks on a
@@ -1402,6 +1444,7 @@ def phase_dist(dev):
     import numpy as np
     import torch
 
+    from repro_torch.configs.europarl_cca import smoke_config
     from repro_torch.launch import cca_fit
 
     run = functools.partial(cca_fit.DistRun, DIST_SHAPE, microbatch=DIST_MICROBATCH)
@@ -1436,12 +1479,20 @@ def phase_dist(dev):
                              "with stream mode")
 
     print("[smoke] dist: smoke width, centered, 4 ranks on 1 × 2 × 2 and 1 × 4 × 1", flush=True)
+    # the smoke rows in a view store (phase 14's directory): ``--mode dist --data``
+    swl = smoke_config()
+    sstore, secs = cca_fit.ingest(str(STORE_ROOT / "dist_smoke"), swl, seed=SEED, device=dev)
+    print(f"[smoke] dist smoke: the rows ingested into {sstore.path} ({sstore.n} rows, "
+          f"{sstore.nbytes / 1e9:.3f} GB) in {secs:.3f} s", flush=True)
     smoke = {c: cca_fit.DistRun((1, 2, 2), collective=c) for c in COLLECTIVES}
+    smoke["fused, rows from the store"] = cca_fit.DistRun((1, 2, 2), store=sstore.path)
     smoke.update({f"bf16 {c}": cca_fit.DistRun((1, 2, 2), collective=c, **bf16)
                   for c in COLLECTIVES})
     smoke["bf16 1 x 4 x 1"] = cca_fit.DistRun((1, 4, 1), **bf16)
     sreps = dist_job(smoke, 4, "dist smoke", smoke=True)
     dist_checks(sreps, 1, "dist smoke")
+    dist_store_check(sreps["fused, rows from the store"], sreps["fused"])
+    shutil.rmtree(STORE_ROOT / "dist_smoke")
     torch.cuda.reset_peak_memory_stats()
     rep_ss = cca_fit.main(["--smoke", "--center", "--device", "cuda", "--seed", str(SEED)])
     gap = float(np.abs(sreps["fused"].result.rho.numpy()
@@ -1772,12 +1823,11 @@ def bf16_fit_pair(argv, label, want_seeded, want_oracle, schedules):
 
 
 # each bf16 stream fit of phase_stream_bf16 → the f32 fit of this script on
-# the same data and Ω
+# the same data and Ω (the bf16 engines pair runs at BF16_PAIR_CHUNKS, which
+# no f32 fit does)
 F32_TWIN = {
     "stream bf16 seeded": "omega=seeded",
     "stream bf16 seeded-materialized": "omega=seeded-materialized",
-    "stream bf16 kernels engine": "kernels engine",
-    "stream bf16 torch engine": "torch engine",
     "stream bf16 p=910 q=0 seeded": "p=910 q=0 seeded",
     "stream bf16 p=910 q=0 seeded-materialized": "p=910 q=0 seeded-materialized",
     "stream bf16 smoke seeded": "stream f32 smoke seeded",
@@ -1800,9 +1850,10 @@ def print_sum_rho_gaps() -> None:
 
 def phase_stream_bf16(dev) -> dict:
     """The stream fit at ``--compute-dtype bfloat16`` (``RCCAConfig(dtype=
-    bfloat16)``): at Europarl width (p = 2000, both passes staged, n cut
-    to N_CHUNKS) ``--omega seeded`` bitwise ``seeded-materialized``, and
-    the materialized kernels engine against the torch engine (|Δρ| ≤ 1e-3);
+    bfloat16)``): at Europarl width (p = 2000, both passes staged)
+    ``--omega seeded`` bitwise ``seeded-materialized`` (``PAIR_CHUNKS``),
+    and the materialized kernels engine against the torch engine
+    (``BF16_PAIR_CHUNKS``, |Δρ| ≤ 1e-3);
     ``--p 910 --q 0`` seeded bitwise its oracle (the final pass
     recomputes); then the smoke width, centered, where both passes
     recompute: seeded bitwise its oracle, kernels against torch.  Each fit
@@ -1812,10 +1863,11 @@ def phase_stream_bf16(dev) -> dict:
     import torch
 
     bf16 = ["--compute-dtype", "bfloat16"]
-    argv = ["--device", dev.type, "--n-chunks", str(N_CHUNKS), "--seed", str(SEED)] + bf16
-    print(f"[smoke] stream bf16: Europarl width, n cut to {N_CHUNKS} chunks of 8192 rows",
-          flush=True)
-    nc, npc = N_CHUNKS, PAIR_CHUNKS
+    argv = ["--device", dev.type, "--n-chunks", str(BF16_PAIR_CHUNKS), "--seed",
+            str(SEED)] + bf16
+    print(f"[smoke] stream bf16: Europarl width, n cut to {BF16_PAIR_CHUNKS} chunks of 8192 "
+          f"rows (kernels against torch; the seeded pairs at {PAIR_CHUNKS})", flush=True)
+    nc, npc = BF16_PAIR_CHUNKS, PAIR_CHUNKS
     power = {"proj_stage[bf16]": 2 * nc, "powerpass_sweep[bf16,f32]": 2 * nc}
     final = {"proj_stage[bf16]": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}
     pair = ["--device", dev.type, "--n-chunks", str(npc), "--seed", str(SEED)] + bf16
@@ -2253,6 +2305,75 @@ def dir_gb(path: Path) -> float:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
 
 
+def sharded_smoke(sreader, scfg, local, local_launches) -> None:
+    """The streaming Sharded topology at the smoke width (phase 14's smoke
+    store: 8 chunks of 512, merge groups of 2, four groups): ``exec.fit``
+    over two slots on the card (``SHARDED_SLOTS``: two streams), counters
+    zeroed just before and read just after: bitwise the Local fit, the
+    same launches; each batch's slot device seconds printed."""
+    from repro_torch.exec import Sharded, fit
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(sreader, scfg, SEED, topology=Sharded(devices=SHARDED_SLOTS), merge_group=2,
+              device="cuda")
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    topo = res.diagnostics["topology"]
+    checks = {"≡ Local": same_fit(res, local), "launches ≡ Local": launches == local_launches,
+              "slots": topo["slots"] == list(SHARDED_SLOTS)}
+    print(f"[smoke] sharded smoke: exec.fit, Sharded(devices={SHARDED_SLOTS}): wall "
+          f"{wall:.3f} s, passes {[p['seconds'] for p in topo['passes']]} s, slot device s per "
+          f"batch {[p['slot_device_s'] for p in topo['passes']]}, schedules "
+          f"{res.diagnostics['schedules']}, launches {launches}; {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("sharded smoke: the Sharded fit is not bitwise the Local fit, or "
+                             "its launches differ")
+
+
+def sharded_europarl(reader, wl, want_digest, want_launches) -> None:
+    """The streaming Sharded topology at Europarl width: phase 14's store
+    (4,352 rows, 9 chunks of 512, two merge groups) with ``--omega
+    seeded`` over two slots on the card (``cca_fit.fit(topology=
+    "sharded")``), alone on the card: ρ and Xa bitwise the Local seeded
+    fit (``want_digest``), its launches per pass the Local fit's; prints
+    the pass times, peak device memory, each batch's slot device seconds
+    and the residency rule's decision."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import cca_fit
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = cca_fit.fit(wl, device="cuda", seed=SEED, store=reader, omega="seeded",
+                      topology="sharded", devices=SHARDED_SLOTS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    topo = rep.topology
+    got = (digest(rep.result.rho), digest(rep.result.Xa))
+    checks = {"rho, Xa ≡ Local seeded": got == want_digest,
+              "launches ≡ Local": rep.pass_launches == want_launches,
+              "slots": topo["slots"] == list(SHARDED_SLOTS)}
+    print(f"[smoke] sharded Europarl: omega=seeded over {topo['slots']}: wall {wall:.3f} s, "
+          f"passes {rep.pass_seconds} s, schedules {rep.pass_schedules}, peak device memory "
+          f"{peak:.2f} GB, launches {rep.pass_launches}, slot device s per batch "
+          f"{[p['slot_device_s'] for p in topo['passes']]}, read "
+          f"{[p['io']['read_s'] for p in topo['passes']]} s, stall "
+          f"{[p['io']['io_stall_s'] for p in topo['passes']]} s, look-ahead "
+          f"{[r['lookahead'] for r in topo['residency'].values()]}, host slots a slot "
+          f"{topo['prefetch_depth']}; sum rho {float(rep.result.rho.double().sum()):.6f}, sha256 "
+          f"rho {got[0]}, Xa {got[1]}; {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("sharded Europarl: the Sharded fit is not bitwise the Local "
+                             "seeded fit, or its launches differ")
+    del rep
+    torch.cuda.empty_cache()
+
+
 def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=None,
                   beside_child=None):
     """The Cluster topology (``repro_torch.cluster``) on the card.
@@ -2285,7 +2406,7 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
 
     from repro_torch.cluster.worker import KILL_ENV
     from repro_torch.configs.europarl_cca import smoke_config
-    from repro_torch.exec import Cluster, fit
+    from repro_torch.exec import Cluster, Hybrid, fit
     from repro_torch.kernels import ops as kops
     from repro_torch.store import ViewStoreReader
 
@@ -2299,16 +2420,25 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
         kops.reset_launch_counts()
         local = fit(sreader, scfg, SEED, merge_group=2, device="cuda")
         local_launches = kops.launch_counts()
+        sharded_smoke(sreader, scfg, local, local_launches)
 
-        def smoke_cluster(combine, env):
+        def smoke_cluster(i, combine, env, topo):
             t0 = time.perf_counter()
-            res = fit(sreader, scfg, SEED, topology=Cluster(n_workers=2), merge_group=2,
-                      cluster_dir=str(root / f"cluster_smoke_{combine}"), combine_groups=combine,
-                      env_overrides=env, device="cuda", worker_timeout=300)
+            res = fit(sreader, scfg, SEED, topology=topo, merge_group=2,
+                      cluster_dir=str(root / f"cluster_smoke_{i}"),
+                      combine_groups=combine, env_overrides=env, device="cuda",
+                      worker_timeout=300)
             return res, time.perf_counter() - t0
 
-        cases = {"combine 1, worker 0 killed at 0:2": (1, {0: {KILL_ENV: "0:2"}}),
-                 "combine 2": (2, None)}
+        # (combine, fault injection, topology): two workers; two Hybrid workers
+        # of two slots each on the card, one of them killed after its first group
+        hybrid = Hybrid(2, 2, devices=SHARDED_SLOTS * 2)
+        cases = {"combine 1, worker 0 killed at 0:2": (1, {0: {KILL_ENV: "0:2"}},
+                                                       Cluster(n_workers=2)),
+                 "combine 2": (2, None, Cluster(n_workers=2)),
+                 "hybrid 2 × 2": (1, None, hybrid),
+                 "hybrid 2 × 2, worker 0 killed after its first group": (
+                     1, {0: {KILL_ENV: "0:1"}}, hybrid)}
         nc = reader.n_chunks
         want = [{"proj_stage_seeded": 2 * nc, "powerpass_sweep": 2 * nc},
                 {"proj_stage": 2 * nc, "gram_sweep": 2 * nc, "matmul_tn": nc}]
@@ -2316,7 +2446,8 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
         # worker processes; none launches a kernel in this process) while
         # the Local seeded fit of the Europarl store runs here
         with ThreadPoolExecutor(len(cases) + 1) as pool:
-            futs = {label: pool.submit(smoke_cluster, *case) for label, case in cases.items()}
+            futs = {label: pool.submit(smoke_cluster, i, *case)
+                    for i, (label, case) in enumerate(cases.items())}
             side = pool.submit(beside_local) if beside_local is not None else None
             busy = "" if side is None else ", contended: phase 16's publishes beside it"
             loc = store_fit(wl, reader, "Europarl store, omega=seeded (Local)" + busy, want,
@@ -2332,27 +2463,35 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
                 for k, v in p["launches"].items():
                     summed[k] = summed.get(k, 0) + v
             devices = sorted({w["device"] for p in passes for w in p["workers"]})
+            slots = sorted({tuple(w.get("slots", [w["device"]])) for p in passes
+                            for w in p["workers"]})
             print(f"[smoke] cluster smoke, {label}: wall {wall:.3f} s (beside the Local fit), "
                   f"passes {[p['wall_s'] for p in passes]} s, re-dispatched "
                   f"{[p['redispatched_groups'] for p in passes]}, partials merged "
                   f"{[p['merge_fan_in'] for p in passes]}, launches over the workers {summed}, "
-                  f"workers on {devices}", flush=True)
+                  f"workers on {devices}, slots {slots}, slot device s "
+                  f"{[w.get('slot_device_s') for p in passes for w in p['workers']]}",
+                  flush=True)
             checks[f"{label} ≡ Local"] = same_fit(res, local)
             checks[f"{label}: workers on cuda:0"] = devices == ["cuda:0"]
+            if cases[label][2] is hybrid:
+                checks[f"{label}: two slots a worker"] = slots == [SHARDED_SLOTS]
             if cases[label][1] is not None:
                 checks[f"{label}: re-dispatched"] = passes[0]["redispatched_groups"] == [2]
             else:
                 checks[f"{label}: launches ≡ Local"] = summed == local_launches
         print(f"[smoke] cluster smoke: {checks}", flush=True)
         if not all(checks.values()):
-            raise AssertionError("cluster smoke: a cluster fit is not bitwise the Local fit, "
-                                 "or its launches or devices are wrong")
+            raise AssertionError("cluster smoke: a cluster or hybrid fit is not bitwise the "
+                                 "Local fit, or its launches or devices are wrong")
 
         # -- Europarl width --------------------------------------------------
         want_digest = (digest(loc.result.rho), digest(loc.result.Xa))
         want_sum = float(loc.result.rho.double().sum())
+        want_launches = loc.pass_launches
         del loc
         torch.cuda.empty_cache()
+        sharded_europarl(reader, wl, want_digest, want_launches)
         cdir = root / "cluster"
         free = shutil.disk_usage(root).free
         print(f"[smoke] cluster Europarl: {free / 1e9:.2f} GB of disk free before the fit",
@@ -2434,14 +2573,17 @@ def serve_child(root: str) -> int:
     grown store for both engines and both Ω modes, the refit from a saved
     and loaded FitState too, a frozen refit followed by an exact refit from
     its saved state bitwise the cold fit, and the no-delta re-finalize
-    bitwise the fit.  Prints one ``[serve] {json}`` line of the checks."""
+    bitwise the fit; then ``fit_with_state`` and the exact ``delta_refit``
+    over ``Sharded(devices=SHARDED_SLOTS)`` (two streams on the card),
+    bitwise the Local ones and the cold fit, with the Local launches.
+    Prints one ``[serve] {json}`` line of the checks."""
     import numpy as np
     import torch
 
     from repro_torch import obs
     from repro_torch.core.rcca import RCCAConfig
     from repro_torch.data import PlantedCCAData
-    from repro_torch.exec import FitState, delta_refit, fit, fit_with_state
+    from repro_torch.exec import FitState, Sharded, delta_refit, fit, fit_with_state
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import cca_serve
     from repro_torch.store import ViewStoreReader, extend_chunks, ingest_chunks
@@ -2511,6 +2653,25 @@ def serve_child(root: str) -> int:
                              device="cuda")
         checks[f"frozen, then exact ≡ cold (kernels, {omega})"] = same_fit(
             res, colds["kernels", omega])
+    sharded = Sharded(devices=SHARDED_SLOTS)
+    for omega in ("materialized", "seeded"):  # the Sharded pair over two slots on the card
+        kw = dict(merge_group=2, engine="kernels", omega=omega, device="cuda")
+        runs = {}
+        for name, topo in (("local", None), ("sharded", sharded)):
+            extra = {} if topo is None else {"topology": topo}
+            kops.reset_launch_counts()
+            res0, state = fit_with_state(old, cfg, SEED, **kw, **extra)
+            fws = kops.launch_counts()
+            kops.reset_launch_counts()
+            res, _ = delta_refit(state, grown, device="cuda", **extra)
+            runs[name] = (res0, fws, res, kops.launch_counts())
+        (l0, lf, ld, ll), (s0, sf, sd, sl) = runs["local"], runs["sharded"]
+        print(f"[smoke] serve smoke, Sharded({SHARDED_SLOTS}) fit_with_state and delta_refit "
+              f"({omega}): launches {sf} and {sl} (Local {lf} and {ll})", flush=True)
+        checks[f"sharded fit_with_state ≡ Local, launches too ({omega})"] = \
+            same_fit(s0, l0) and sf == lf
+        checks[f"sharded exact delta ≡ cold, launches ≡ Local delta ({omega})"] = \
+            same_fit(sd, colds["kernels", omega]) and sl == ll
     print("[serve] " + json.dumps({"checks": checks}), flush=True)
     return 0
 

@@ -22,7 +22,10 @@ Workers fold whole merge groups with the Local fit's per-chunk updates
 and the merge is the Local fit's tree, so the result is bitwise the Local
 store fit's (``exec.fit`` with the same store, Ω, engine and merge group)
 for any worker count and combine span, under injected kills and hangs
-and after re-dispatch.
+and after re-dispatch.  With ``devices_per_worker > 1`` (the Hybrid
+topology) each worker folds its groups one per device slot
+(``--devices``, the slots placed by ``exec.topology.worker_slots``), with
+the same bits.
 
 Under ``RCCA_TRACE`` the coordinator records the ``fit`` span
 (``site="coordinator"``, role ``coordinator``), a ``pass`` span each
@@ -55,6 +58,7 @@ from ..core.rcca import (DEFAULT_ENGINE, RCCAConfig, RCCAResult, algo_meta, fina
                          stats_init_fn)
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..exec.accumulate import MERGE_GROUP_CHUNKS, SegmentedAccumulator
+from ..exec.topology import worker_slots
 from ..kernels import build
 from ..kernels import rand as krand
 from ..store import ViewStoreReader
@@ -96,6 +100,10 @@ class ClusterCoordinator:
                        does not move.
     omega:             Ω's provenance (``rcca.OMEGA_MODES``), binding; under
                        ``"seeded"`` pass 0's round carries the seeds.
+    devices_per_worker: each worker's device slots (above 1: the Hybrid
+                       topology's workers);
+    worker_devices:    their placement, ``Hybrid.devices``'s rule (None: the
+                       cards from ``w·devices_per_worker`` on, or host slots);
     prefetch:          each worker's prefetch depth.
     ckpt_every:        each worker's cursor period, in chunks.
     worker_timeout:    seconds a pass may run before its live workers are
@@ -111,7 +119,8 @@ class ClusterCoordinator:
 
     def __init__(self, store, cfg: RCCAConfig, cluster_dir: str, *, n_workers: int = 2,
                  engine: str = DEFAULT_ENGINE, merge_group: int = MERGE_GROUP_CHUNKS,
-                 combine_groups: int = 1, omega: str = "materialized", prefetch: int = 2,
+                 combine_groups: int = 1, omega: str = "materialized",
+                 devices_per_worker: int = 1, worker_devices=None, prefetch: int = 2,
                  ckpt_every: int = 4, worker_timeout: Optional[float] = 600.0,
                  heartbeat_timeout: Optional[float] = None, max_redispatch: int = 3,
                  env_overrides: Optional[Dict[int, dict]] = None, device=DEFAULT_DEVICE):
@@ -135,6 +144,13 @@ class ClusterCoordinator:
         self.device = resolve_device(device)
         if self.n_workers < 1:
             raise ValueError("need at least one worker")
+        self.devices_per_worker = int(devices_per_worker)
+        if self.devices_per_worker < 1:
+            raise ValueError("need at least one device per worker")
+        # each worker's slots, checked against the visible cards before any spawn
+        self.worker_slots = (worker_slots(self.n_workers, self.devices_per_worker,
+                                          worker_devices, self.device)
+                             if self.devices_per_worker > 1 else None)
         if self.combine_groups < 1 or self.combine_groups & (self.combine_groups - 1):
             raise ValueError(f"combine_groups must be a power of two (a combined span must be "
                              f"one subtree of the canonical reduction), got "
@@ -160,6 +176,8 @@ class ClusterCoordinator:
                "--round-wait-s", str(ROUND_WAIT_S)]
         if groups is not None:
             cmd += ["--groups", ",".join(str(g) for g in groups)]
+        if self.worker_slots is not None:  # a repair worker takes a worker's slots
+            cmd += ["--devices", ",".join(self.worker_slots[shard % self.n_workers])]
         env = dict(os.environ)
         env["PYTHONPATH"] = SRC_ROOT + (os.pathsep + env["PYTHONPATH"]
                                         if env.get("PYTHONPATH") else "")
@@ -401,7 +419,7 @@ class ClusterCoordinator:
         prev = obs.set_context(fit_id=fit_id, role="coordinator")
         try:
             with obs.span("fit", site="coordinator", engine=self.engine,
-                          n_workers=self.n_workers, devices_per_worker=1):
+                          n_workers=self.n_workers, devices_per_worker=self.devices_per_worker):
                 return self._fit(fit_id, seed, Qa, Qb)
         finally:
             obs.set_context(**prev)  # the process's records after the fit are not the fit's
@@ -451,7 +469,9 @@ class ClusterCoordinator:
             Qa, Qb = self._materialize_omega(Qa, Qb)
         res = finalize_result(stats, Qa, Qb, cfg, r.da, r.db)
         res.diagnostics["cluster"] = {
-            "n_workers": self.n_workers, "devices_per_worker": 1, "topology": "cluster",
+            "n_workers": self.n_workers, "devices_per_worker": self.devices_per_worker,
+            "topology": "hybrid" if self.devices_per_worker > 1 else "cluster",
+            "worker_slots": self.worker_slots,
             "n_groups": self.n_groups, "merge_group": self.merge_group,
             "combine_groups": self.combine_groups, "omega": self.omega, "fit_id": fit_id,
             "device": str(self.device), "passes": passes,

@@ -3,10 +3,9 @@
     PYTHONPATH=src python -m repro_torch.cluster.worker --store /data/corpus \
         --cluster-dir /data/cluster --shard 3 --n-shards 8 --pass-idx 0 [--device cpu]
 
-Port of ``repro/cluster/worker.py`` (the sequential worker; ``--devices``
-above 1, the Hybrid topology's worker, is not ported yet).  Any
-scheduler may run it: beyond its shard identity, everything a worker
-needs comes from the store's manifest and the pass's ROUND
+Port of ``repro/cluster/worker.py``.  Any scheduler may run it: beyond
+its shard identity, everything a worker needs comes from the store's
+manifest and the pass's ROUND
 (:mod:`repro_torch.cluster.partials`): the Qa/Qb bases (under
 ``omega="seeded"``, pass 0's per-view seeds: the kernels engine makes Ω
 on the card inside the seeded stage, the torch engine makes it from the
@@ -24,6 +23,16 @@ shapes, resolving the same schedules.  Each closed group is published
 as a partial, or first pre-merged with its run into aligned spans
 (``exec.SpanCombiner``) when the round asks for ``combine > 1``.  The
 store's look-ahead rule takes 1/n-shards of the card's free memory.
+
+``--devices`` above one slot (a count, or a slot list such as
+``cuda:0,cuda:0``: ``exec.resolve_slots``) makes the Hybrid topology's
+worker: its groups are folded one per slot, each on its slot's stream
+(``exec.fold_groups_on_mesh``, the same updates, so the same bits), and
+published in ascending order through the same combiner.  Its cursors
+are at group granularity (a killed Hybrid worker's published groups are
+skipped, the others redone) and kill and hang injection act after the
+group that holds the chunk named.  The look-ahead rule's share is
+n-shards × the worker's slots on the card.
 
 Fault tolerance:
 
@@ -76,9 +85,10 @@ from ..ckpt import CheckpointManager
 from ..obs.cost import chunk_cost_fn
 from ..core.rcca import (RCCAConfig, seeded_update_fn, stats_init_fn, stats_like,
                          update_fn)
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE
 from ..dtypes import torch_dtype
-from ..exec import SegmentedAccumulator, SpanCombiner, run_fold
+from ..exec import (SegmentedAccumulator, SpanCombiner, fold_groups_on_mesh, resolve_slots,
+                    run_fold)
 from ..kernels import build
 from ..kernels import ops as kops
 from ..kernels import rand as krand
@@ -143,15 +153,18 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
                groups: Optional[Sequence[int]] = None, prefetch: int = 2,
                ckpt_every: int = 4, round_wait_s: float = 30.0,
                kill_at_chunk: Optional[int] = None, device=DEFAULT_DEVICE,
-               report: Optional[dict] = None) -> int:
+               devices=1, report: Optional[dict] = None) -> int:
     """Process one shard of one pass on ``device``; returns the number of
     partials this run published (0 when every owned group was already
     published).  ``groups`` overrides the striped assignment (the
     coordinator's re-dispatch); ``kill_at_chunk`` injects a crash as
-    :data:`KILL_ENV` does.  ``report``, when given, is filled with what
+    :data:`KILL_ENV` does; ``devices`` are the worker's slots
+    (``exec.resolve_slots`` on ``device``'s kind: more than one makes a
+    Hybrid worker).  ``report``, when given, is filled with what
     the CLI prints."""
     t_start = obs.monotonic()
-    dev = resolve_device(device)
+    slots = resolve_slots(devices, device)
+    dev = slots[0]
     reader = ViewStoreReader(store)
     pt.touch_heartbeat(cluster_dir, shard, pass_idx)  # alive while it waits for the round
     Qa, Qb, meta = pt.read_round(cluster_dir, pass_idx, wait_s=round_wait_s)
@@ -226,6 +239,14 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
             combiner.emit(g, stats)
         else:
             publish_span(g, 1, stats)
+
+    if len(slots) > 1:
+        return _hybrid_pass(reader, cfg, slots, todo, upd, Qa, Qb, publish, combiner, state,
+                            group=G, kind=kind, engine=engine, seeded=seeded,
+                            pass_idx=pass_idx, shard=shard, n_shards=n_shards,
+                            prefetch=prefetch, kill_at_chunk=kill_at_chunk,
+                            hang_at_chunk=hang_at_chunk, launches0=launches0, t_start=t_start,
+                            report=report)
 
     # resume position: a cursor of this fit, mid-way through the first group
     # still missing its partial; anything else is redone from the group's start
@@ -336,6 +357,61 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
     return state["published"]
 
 
+def _hybrid_pass(reader, cfg, slots, todo, upd, Qa, Qb, publish, combiner, state, *, group,
+                 kind, engine, seeded, pass_idx, shard, n_shards, prefetch, kill_at_chunk,
+                 hang_at_chunk, launches0, t_start, report) -> int:
+    """A Hybrid worker's pass: its groups ``todo`` folded one per slot
+    (``exec.fold_groups_on_mesh``) and published in ascending order;
+    kill and hang injection after the group that holds the chunk named.
+    Returns the partials published."""
+    from ..store.passes import SlotSet
+
+    G, n_chunks, kt = group, reader.n_chunks, cfg.sketch
+    first = todo[0] * G
+    rows = min(reader.chunk, reader.n - first * reader.chunk)
+    state["schedule"] = kops.chunk_cost(kind, rows, reader.da, reader.db, kt, engine=engine,
+                                        seeded=seeded, dtype=cfg.dtype)["schedule"]
+
+    def emit(g: int, stats) -> None:
+        last = min(n_chunks, (g + 1) * G) - 1
+        publish(g, stats)
+        state["chunks"] += last + 1 - g * G
+        state["rss_gb"] = max(state["rss_gb"], rss_gb())
+        if hang_at_chunk is not None and last >= hang_at_chunk:
+            _hang_forever(shard, last)
+        if kill_at_chunk is not None and last >= kill_at_chunk:
+            raise WorkerKilled(f"injected kill after group {g} (chunk {last})")
+
+    mesh = SlotSet(reader, cfg, slots, prefetch=prefetch, share=n_shards)
+    try:
+        with obs.span("worker_pass", pass_idx=int(pass_idx), kind=kind, shard=shard,
+                      site="hybrid"):
+            device_s = fold_groups_on_mesh(
+                reader, todo, upd,
+                lambda d: stats_init_fn(kind, reader.da, reader.db, kt, d), Qa, Qb,
+                slots=mesh, merge_group=G, n_chunks=n_chunks, emit=emit, dtype=cfg.dtype,
+                span_attrs={"kind": kind, "engine": engine, "pass_idx": int(pass_idx)},
+                cost_fn=chunk_cost_fn(kind, engine, kt, cfg.dtype, seeded=seeded))
+            combiner.flush()  # the trailing short run (end of stream)
+    finally:
+        combiner.close()
+        mesh.close()
+    if report is not None:
+        for d in dict.fromkeys(mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        counts = kops.launch_counts()
+        report.update(
+            published=state["published"], chunks=state["chunks"],
+            partial_bytes=state["partial_bytes"], cursor_bytes=[], schedule=state["schedule"],
+            resumed_at=None, io=mesh.io[-1], residency=next(iter(mesh.rules.values()), None),
+            slots=[_device_name(d) for d in mesh.devices], slot_device_s=device_s,
+            seconds=round(obs.monotonic() - t_start, 4), rss_peak_gb=state["rss_gb"],
+            launches={k: v - launches0.get(k, 0) for k, v in counts.items()
+                      if v != launches0.get(k, 0)})
+    return state["published"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--store", required=True, help="view store path or URI")
@@ -346,27 +422,28 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", default=None,
                     help="comma-separated merge groups overriding the striped assignment "
                          "(the coordinator's re-dispatch)")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="local devices to fold merge groups over; only 1 is ported")
+    ap.add_argument("--devices", default="1",
+                    help="the worker's device slots: a count (the first N cards, or N host "
+                         "slots with --device cpu) or a list such as cuda:0,cuda:0; more "
+                         "than one folds the merge groups one per slot (the hybrid topology)")
     ap.add_argument("--device", default=DEFAULT_DEVICE, choices=["cuda", "cpu"])
     ap.add_argument("--prefetch", type=int, default=2)
     ap.add_argument("--ckpt-every", type=int, default=4)
     ap.add_argument("--round-wait-s", type=float, default=30.0)
     args = ap.parse_args(argv)
-    if args.devices != 1:
-        raise SystemExit("--devices > 1 (the hybrid topology's worker, merge groups folded "
-                         "over a device mesh) is not ported yet (ROADMAP Queue 1 item 3)")
     groups = [int(g) for g in args.groups.split(",")] if args.groups else None
     report: dict = {}
     try:
         n = run_worker(args.store, args.cluster_dir, args.shard, args.n_shards, args.pass_idx,
                        groups=groups, prefetch=args.prefetch, ckpt_every=args.ckpt_every,
-                       round_wait_s=args.round_wait_s, device=args.device, report=report)
+                       round_wait_s=args.round_wait_s, device=args.device, devices=args.devices,
+                       report=report)
     except WorkerKilled as e:
         print(f"[worker {args.shard}] {e}", flush=True)
         os._exit(3)  # a hard death: no clean-up, like a lost machine
-    dev = torch.device(args.device)
-    report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    cards = {torch.device(d) for d in report.get("slots", [report.get("device", args.device)])}
+    report["peak_gb"] = (max(torch.cuda.max_memory_allocated(d) for d in cards) / 1e9
+                         if torch.device(args.device).type == "cuda" else None)
     print(f"[worker {args.shard}] pass {args.pass_idx}: published {n} partial(s)", flush=True)
     print(REPORT + json.dumps(report), flush=True)
     return 0

@@ -149,11 +149,12 @@ class PairwiseStack:
         finally:
             self._finalizer()
 
-    def expect(self, s: Stats) -> None:
-        """Announce partials shaped like ``s`` (the open group): the first
+    def expect(self, s: Stats, device=None) -> None:
+        """Announce partials shaped like ``s`` (the open group, or a like-tree
+        of ``meta`` tensors whose partials come from ``device``): the first
         push's host buffer is then made while the card works."""
         if self._like is None:
-            self.device = s[0].device
+            self.device = s[0].device if device is None else torch.device(device)
             self._like = (type(s), [(t.shape, t.dtype) for t in s])
             self._lock = self.device.type == "cuda"
             self._pending = self._worker.submit(self._ensure_spare)
@@ -327,6 +328,14 @@ class SegmentedAccumulator:
         self.current = None
         self.groups_done += 1
         self._in_group = 0
+
+    def expect(self, like: Stats, device) -> None:
+        """Announce group sums shaped like ``like`` (e.g. ``rcca.stats_like``)
+        from ``device`` before any chunk is folded here (a mesh fold's
+        groups come from its slots): the stack's first host buffer is made
+        while the card works, as at a sequential fold's first chunk."""
+        if self.sink is None:
+            self._tree.expect(like, device)
 
     def resume_group(self, current: Stats, next_chunk: int) -> None:
         """Continue an open group from a cursor (a sink-mode worker's):

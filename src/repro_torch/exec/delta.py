@@ -1,7 +1,7 @@
 """Incremental delta-refits: persist a fit's accumulator state, fold
 only appended shards, re-finalize.
 
-Port of ``repro/exec/delta.py`` for the Local topology.  Every
+Port of ``repro/exec/delta.py``.  Every
 accumulator field is an exact row sum, so statistics over appended rows
 merge into persisted state through the same canonical pairwise tree
 (:mod:`repro_torch.exec.accumulate`) that makes a resumed fit bitwise
@@ -13,8 +13,9 @@ the uninterrupted one:
   hashes) and the binding metadata (engine, omega, merge group, algo),
   so that a refit against other data or knobs fails loudly;
 - :func:`fit_with_state` — a cold fit (``PassRunner.fit``, the path
-  ``exec.fit`` runs for Local) that also captures that state through its
-  ``on_pass_complete`` hook: bitwise ``exec.fit``'s result;
+  ``exec.fit`` runs for Local, or ``PassEngine.run_mesh`` for Sharded)
+  that also captures that state through its ``on_pass_complete`` hook:
+  bitwise ``exec.fit``'s result;
 - :func:`delta_refit` — detect appended shards through the manifest
   prefix, fold only the delta, merge, re-finalize.
 
@@ -36,10 +37,13 @@ Two refit modes, because the power iteration couples passes to data:
     pass-0 entry stays exact, a later ``mode="exact"`` refit from the
     same state still reproduces the cold fit bitwise.
 
-Range folds run through :meth:`repro_torch.store.PassRunner.fold`: the
-cold fit's prefetcher, update functions and schedule rule, so every
-delta chunk (a ragged tail too) resolves the schedule the cold fit gives
-it.
+Range folds run through :meth:`repro_torch.store.PassRunner.fold`
+(Local) or :meth:`repro_torch.exec.PassEngine.fold_groups` (Sharded: whole
+merge groups one per device slot, the range starting on a group
+boundary): the cold fit's prefetcher, update functions and schedule
+rule, so every delta chunk (a ragged tail too) resolves the schedule the
+cold fit gives it.  The topology shapes only how the range is folded,
+never the values.
 
 Alignment contract: the old corpus ends on a merge-group boundary
 (``old_n`` divisible by ``chunk · merge_group``).  Chunk alignment keeps
@@ -51,9 +55,8 @@ made at the next chunk), and a FitState written here stores no leaves
 for it; the reference writes a zero group there.  Both load, and a delta
 folds onto either bitwise (:func:`_restore_acc`).
 
-The streaming ``Sharded`` topology is not ported yet (ROADMAP Queue 1
-item 3); the Cluster and Hybrid topologies are rejected, as the
-reference rejects them.
+The Cluster and Hybrid topologies are rejected, as the reference
+rejects them.
 
 Under ``RCCA_TRACE`` a refit is one ``delta_refit`` span (mode, old and
 new chunk counts, engine) around its range folds' ``io_wait`` and
@@ -74,7 +77,7 @@ from .. import obs
 from ..ckpt import load_flat, save_pytree
 from ..device import DEFAULT_DEVICE, resolve_device
 from .accumulate import MERGE_GROUP_CHUNKS, SegmentedAccumulator
-from .topology import Local, as_topology
+from .topology import Local, Sharded, as_topology
 
 FITSTATE_VERSION = 1
 
@@ -102,18 +105,15 @@ def _stats_cls(kind: str):
     return PowerStats if kind == "power" else FinalStats
 
 
-def _local_only(topology, what: str) -> None:
-    """Raise unless ``topology`` is Local: Sharded is not ported yet,
-    Cluster and Hybrid are rejected as the reference rejects them."""
-    name = "hybrid" if topology == "hybrid" else as_topology(topology).name
-    if name == "sharded":
-        raise NotImplementedError(
-            f"{what} over the sharded topology is not ported yet (ROADMAP Queue 1 item 3: "
-            "the streaming Sharded and the Hybrid topologies); use Local")
-    if name != "local":
+def _local_or_sharded(topology, what: str):
+    """``topology`` as a value; raise unless it is Local or Sharded (the
+    reference's rule: cluster capture is a ROADMAP residual)."""
+    topo = as_topology(topology)
+    if not isinstance(topo, (Local, Sharded)):
         tail = "capture is a ROADMAP residual" if what == "fit_with_state" \
             else "is a ROADMAP residual"
-        raise ValueError(f"{what} supports Local and Sharded topologies; {name} {tail}")
+        raise ValueError(f"{what} supports Local and Sharded topologies; {topo.name} {tail}")
+    return topo
 
 
 @dataclasses.dataclass
@@ -240,17 +240,18 @@ def fit_with_state(store, cfg, seed: int, *, topology=Local(), engine: Optional[
     returns the :class:`FitState` a later :func:`delta_refit` resumes
     from → ``(RCCAResult, FitState)``.
 
-    Runs ``PassRunner.fit`` (``exec.fit``'s Local path: bitwise its
-    result) with a capture on its ``on_pass_complete`` hook.
+    Runs ``PassRunner.fit`` (Local) or ``PassEngine.run_mesh`` (Sharded),
+    ``exec.fit``'s paths, so the result is bitwise its, with a capture on
+    the ``on_pass_complete`` hook.
     """
     from ..core.rcca import DEFAULT_ENGINE, algo_meta
     from ..store import PassRunner
+    from .engine import PassEngine
 
     dev = resolve_device(device)
-    _local_only(topology, "fit_with_state")
+    topo = _local_or_sharded(topology, "fit_with_state")
     reader = _reader(store)
-    runner = PassRunner(reader, cfg, engine=DEFAULT_ENGINE if engine is None else engine,
-                        prefetch=prefetch, merge_group=merge_group, omega=omega, device=dev)
+    engine = DEFAULT_ENGINE if engine is None else engine
     captured: Dict[int, PassCapture] = {}
 
     def capture(pass_idx, kind, acc, Qa, Qb):
@@ -260,13 +261,21 @@ def fit_with_state(store, cfg, seed: int, *, topology=Local(), engine: Optional[
                                              acc_current=st["current"],
                                              acc_stack=tuple(st["stack"]))
 
-    try:
-        res = runner.fit(seed=seed, on_pass_complete=capture)
-    finally:
-        runner.close()
+    if isinstance(topo, Sharded):
+        eng = PassEngine(cfg, engine=engine, merge_group=merge_group, omega=omega, device=dev,
+                         topology=topo)
+        res = eng.run_mesh(reader, seed=seed, prefetch=prefetch if isinstance(prefetch, int)
+                           else 2, on_pass_complete=capture)
+    else:
+        eng = PassRunner(reader, cfg, engine=engine, prefetch=prefetch, merge_group=merge_group,
+                         omega=omega, device=dev)
+        try:
+            res = eng.fit(seed=seed, on_pass_complete=capture)
+        finally:
+            eng.close()
     meta = {
         "version": FITSTATE_VERSION,
-        "engine": runner.engine, "omega": runner.omega,
+        "engine": eng.engine, "omega": eng.omega,
         "merge_group": int(merge_group), "algo": algo_meta(cfg),
         **_store_snapshot(reader),
     }
@@ -339,7 +348,8 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
     """Refit against an extended store by folding only what changed →
     ``(RCCAResult, FitState)``: the refreshed result and the state to
     persist for the next refit.  ``mode`` picks the exact-vs-frozen trade
-    (module docstring).  With no appended rows, re-finalizes from the
+    (module docstring); ``topology`` (Local or Sharded) only how the
+    ranges are folded, never the values.  With no appended rows, re-finalizes from the
     state without reading the store.  ``diagnostics["delta"]`` holds the
     mode, the delta and refolded chunk counts, the seconds taken to
     restore pass 0's accumulator (``restore_s``: its closed groups copied
@@ -348,18 +358,38 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
     from ..core.rcca import finalize_result, power_update_Q, stats_init_fn
     from ..store import PassRunner
 
+    from .engine import PassEngine
+
     dev = resolve_device(device)
     if mode not in ("exact", "frozen"):
         raise ValueError(f"unknown mode {mode!r}; expected exact or frozen")
-    _local_only(topology, "delta_refit")
+    topo = _local_or_sharded(topology, "delta_refit")
     reader = _reader(store)
     m = state.meta
     cfg = _config_from_algo(m["algo"])
     q, kt = cfg.q, cfg.sketch
     old_nc, new_nc = delta_chunks(state, reader)
-    runner = PassRunner(reader, cfg, engine=m["engine"], prefetch=prefetch,
-                        merge_group=int(m["merge_group"]), omega=m["omega"], device=dev)
-    eng = runner.pass_engine()
+    if isinstance(topo, Sharded):
+        from ..store.passes import SlotSet
+
+        eng = PassEngine(cfg, engine=m["engine"], merge_group=int(m["merge_group"]),
+                         omega=m["omega"], device=dev, topology=topo)
+        dev = eng.device
+        runner = SlotSet(reader, cfg, eng.slots, prefetch=prefetch if isinstance(prefetch, int)
+                         else 2)
+
+        def fold(pass_idx, kind, acc, Qa, Qb, start=0):
+            # ``start`` is a merge-group boundary: the alignment contract
+            eng.fold_groups(reader, runner, pass_idx, kind, acc, Qa, Qb,
+                            range(start // G, -(-new_nc // G)), n_chunks=new_nc)
+
+        def io_passes():
+            return list(runner.io)
+    else:
+        runner = PassRunner(reader, cfg, engine=m["engine"], prefetch=prefetch,
+                            merge_group=int(m["merge_group"]), omega=m["omega"], device=dev)
+        eng = runner.pass_engine()
+        fold, io_passes = runner.fold, runner.io_passes
     da, db = reader.da, reader.db
     G = eng.merge_group
 
@@ -396,18 +426,18 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
             t0 = time.perf_counter()
             acc0 = restore(cap0)
             restore_s = time.perf_counter() - t0
-            runner.fold(0, cap0.kind, acc0, Qa0, Qb0, start=old_nc)
+            fold(0, cap0.kind, acc0, Qa0, Qb0, start=old_nc)
             new_cap0 = capture(cap0.kind, acc0, Qa0, Qb0)
 
             if mode == "frozen" and q > 0:
                 # the delta into the final accumulator under the frozen bases
                 QaF, QbF = slots(capF)
                 accF = restore(capF)
-                runner.fold(q, capF.kind, accF, QaF, QbF, start=old_nc)
+                fold(q, capF.kind, accF, QaF, QbF, start=old_nc)
                 res = finalize_result(accF.result(), QaF, QbF, cfg, da, db)
                 res.diagnostics["delta"] = {"mode": mode, "delta_chunks": delta,
                                             "refolded_chunks": delta, "restore_s": restore_s,
-                                            "passes": runner.io_passes()}
+                                            "passes": io_passes()}
                 return res, FitState(meta=new_meta,
                                      passes={0: new_cap0, q: capture(capF.kind, accF, QaF, QbF)})
 
@@ -420,7 +450,7 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
                                       da, db)
                 res.diagnostics["delta"] = {"mode": "exact", "delta_chunks": delta,
                                             "refolded_chunks": refolded, "restore_s": restore_s,
-                                            "passes": runner.io_passes()}
+                                            "passes": io_passes()}
                 return res, FitState(meta=new_meta, passes={0: new_cap0})
 
             Qa, Qb = Qa0, Qb0
@@ -431,14 +461,14 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
             for pass_idx in range(1, q + 1):
                 kind = "power" if pass_idx < q else "final"
                 acc = SegmentedAccumulator(stats_init_fn(kind, da, db, kt, dev), new_nc, G)
-                runner.fold(pass_idx, kind, acc, Qa, Qb)
+                fold(pass_idx, kind, acc, Qa, Qb)
                 refolded += new_nc
                 if kind == "power":
                     Qa, Qb = power_update_Q(acc.result(), Qa, Qb, cfg)
             res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
             res.diagnostics["delta"] = {"mode": "exact", "delta_chunks": delta,
                                         "refolded_chunks": refolded, "restore_s": restore_s,
-                                        "passes": runner.io_passes()}
+                                        "passes": io_passes()}
             return res, FitState(meta=new_meta,
                                  passes={0: new_cap0, q: capture("final", acc, Qa, Qb)})
         finally:

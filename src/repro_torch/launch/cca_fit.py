@@ -19,6 +19,12 @@ Europarl stand-in, streamed or resident on a mesh of ranks.
         --data /tmp/s --ckpt-dir /tmp/c --resume
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
         --data /tmp/s --ingest --topology cluster --workers 2
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --topology sharded --devices 3
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --topology hybrid --workers 2 --devices-per-worker 2
+    PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu \
+        --data /tmp/s --mode dist --ranks 4
     PYTHONPATH=src python -m repro_torch.launch.cca_fit --smoke --device cpu --trace /tmp/t
     PYTHONPATH=src python -m repro_torch.obs export-trace /tmp/t -o /tmp/t.json
 
@@ -48,6 +54,13 @@ bitwise the Local (``--topology local``, the default) store fit.  Each
 pass prints its publish, barrier, merge and boundary seconds, the bytes
 of its round, partials and cursors, the launches summed over its workers,
 and each worker's device, groups, seconds and peak memory.
+``--topology hybrid`` gives each worker ``--devices-per-worker`` device
+slots (placed by ``--devices``, ``exec.Hybrid``'s rule), and
+``--topology sharded`` folds the store's merge groups one per device slot
+in this process (``--devices``: a count or a list such as
+``cuda:0,cuda:0``; ``exec.resolve_slots``); each pass then prints its
+seconds, launches, each batch's slot device seconds and its reads.  Both
+are bitwise the Local fit.
 
 ``--mode stream``: rows are made on the device chunk by chunk
 (:class:`~repro_torch.data.DevicePlantedChunks`) and streamed through
@@ -70,8 +83,9 @@ of the rows and features and running
 passes cast each microbatch and Q to before the products: ``float32``,
 as the reference's default, or ``bfloat16``, whose products run the
 kernels' bf16 forms with f32 accumulation).  Each rank makes the same rows
-and Ω as stream mode, whole, and keeps its block; ranks make them one
-at a time.  On the card every rank gets ``cuda:r`` and NCCL when there
+and Ω as stream mode, whole, and keeps its block (with ``--data``, it
+reads only its rows and columns from the store instead); ranks make them
+one at a time.  On the card every rank gets ``cuda:r`` and NCCL when there
 are as many cards as ranks, else they share the cards over gloo, whose
 all-reduce stages CUDA tensors through the host.  The kernels are built
 before the ranks start.
@@ -105,6 +119,7 @@ import shutil
 import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -141,6 +156,7 @@ class FitReport(NamedTuple):
                           # torch engine)
     io: Optional[dict] = None  # a store-backed fit's diagnostics["io"]
     cluster: Optional[dict] = None  # a cluster fit's diagnostics["cluster"]
+    topology: Optional[dict] = None  # a sharded fit's diagnostics["topology"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -195,7 +211,8 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         seed: int = 0, n_chunks: int | None = None, omega: str = "materialized",
         store=None, prefetch=2, ckpt_dir: Optional[str] = None,
         resume: bool = False, workers: int = 0,
-        cluster_dir: Optional[str] = None) -> FitReport:
+        cluster_dir: Optional[str] = None, topology: Optional[str] = None,
+        devices=None, devices_per_worker: int = 1) -> FitReport:
     """Stream-mode fit of workload ``wl``, n cut to ``n_chunks`` chunks,
     Ω from ``seed`` under ``omega``, rows and Ω in ``wl.rcca.dtype``.
     Pass 0's interval includes making Ω (the seeded-materialized mode's
@@ -205,19 +222,27 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
     a :class:`~repro_torch.store.PassRunner` (``prefetch``, cursors in
     ``ckpt_dir``, ``resume``), and n is the store's.  With ``workers`` as
     well, the store is fitted by the cluster coordinator across that many
-    worker processes (cluster directory ``cluster_dir``): a pass's seconds
-    are its wall time, boundary included, its launches those summed over
-    its workers."""
-    from ..exec import Cluster
+    worker processes (cluster directory ``cluster_dir``; ``topology=
+    "hybrid"``: each worker over ``devices_per_worker`` slots placed by
+    ``devices``, ``exec.Hybrid``'s rule): a pass's seconds are its wall
+    time, boundary included, its launches those summed over its workers.
+    ``topology="sharded"`` folds the store's merge groups one per device
+    slot in this process (``devices``: ``exec.resolve_slots``), its
+    ``diagnostics["topology"]`` in the report."""
+    from ..exec import Cluster, Hybrid, PassEngine, Sharded
     from ..exec import fit as exec_fit
     from ..store import PassRunner
 
     dev = resolve_device(device)
     cfg = wl.rcca
+    if topology in ("sharded", "hybrid") and store is None:
+        raise ValueError(f"a {topology} fit needs a store")
     if workers:
         if store is None or cluster_dir is None:
             raise ValueError("a cluster fit needs a store and a cluster directory")
-        res = exec_fit(store, cfg, seed, topology=Cluster(workers), engine=engine,
+        topo = (Hybrid(workers, devices_per_worker, devices) if topology == "hybrid"
+                else Cluster(workers))
+        res = exec_fit(store, cfg, seed, topology=topo, engine=engine,
                        omega=omega, prefetch=prefetch, cluster_dir=cluster_dir, device=dev)
         cl = res.diagnostics["cluster"]
         passes = cl["passes"]
@@ -245,6 +270,12 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
                                       omega=omega, engine=engine, n_chunks=data.n_chunks,
                                       on_pass_complete=on_pass_complete, device=dev)
         n, nc = data.n, data.n_chunks
+    elif topology == "sharded":
+        eng = PassEngine(cfg, engine=engine, omega=omega, device=dev,
+                         topology=Sharded(devices=devices))
+        res = eng.run_mesh(store, seed=seed, prefetch=prefetch if isinstance(prefetch, int)
+                           else 2, on_pass_complete=on_pass_complete)
+        n, nc = store.n, store.n_chunks
     else:
         runner = PassRunner(store, cfg, engine=engine, prefetch=prefetch, ckpt_dir=ckpt_dir,
                             omega=omega, device=dev)
@@ -255,7 +286,8 @@ def fit(wl: CCAWorkload, *, engine: str = DEFAULT_ENGINE, device=DEFAULT_DEVICE,
         n, nc = store.n, store.n_chunks
     _sync(dev)
     return FitReport(res, n, nc, pass_seconds, pass_launches, pass_groups,
-                     res.diagnostics["schedules"], res.diagnostics.get("io"))
+                     res.diagnostics["schedules"], res.diagnostics.get("io"),
+                     topology=res.diagnostics.get("topology"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,18 +303,21 @@ class RankSpec:
     device: str
     gather: bool
     compute_dtype: str
+    store: Optional[str] = None  # read the rank's rows from this view store
 
 
 @dataclasses.dataclass(frozen=True)
 class DistRun:
     """One fit of a dist-mode job: its mesh (pod, data, model), engine,
-    collective, microbatch and compute dtype."""
+    collective, microbatch and compute dtype, and the view store its rows
+    come from (None: made as stream mode makes them)."""
 
     mesh_shape: tuple
     engine: str = DEFAULT_ENGINE
     collective: str = "fused"
     microbatch: Optional[int] = None
     compute_dtype: str = "float32"
+    store: Optional[str] = None
 
 
 class DistReport(NamedTuple):
@@ -298,9 +333,26 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
+def _store_chunks(path: str, dev):
+    """``get_chunk(idx, cols_a, cols_b)`` over a view store: the chunk's
+    columns read from its memory maps, as f32 on ``dev``."""
+    from ..dtypes import as_tensor
+    from ..store import ViewStoreReader
+
+    reader = ViewStoreReader(path)
+
+    def get_chunk(idx, cols_a, cols_b):
+        a, b = reader.read_chunk(idx)
+        return (as_tensor(np.ascontiguousarray(a[:, cols_a]), reader.dtype).to(dev, torch.float32),
+                as_tensor(np.ascontiguousarray(b[:, cols_b]), reader.dtype).to(dev, torch.float32))
+
+    return get_chunk
+
+
 def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
     """This rank's blocks of the Ω stream mode draws and of the rows it
-    streams (the same chunks), each made whole and cut.  Ω comes first:
+    streams (the same chunks), each made whole and cut, or read from
+    ``spec.store`` (only the rank's rows and columns).  Ω comes first:
     its small blocks then do not land in a segment freed by a whole
     chunk, which the card could not get back."""
     wl, cfg = spec.wl, spec.wl.rcca
@@ -309,8 +361,11 @@ def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
     del Qa
     Qb_l = shard_block(Qb, mesh, col_axis, None)
     del Qb
-    data = DevicePlantedChunks(spec.n, wl.da, wl.db, rank=max(cfg.k * 2, 16), seed=spec.seed,
-                               chunk=wl.chunk, device=dev)
+    if spec.store is not None:
+        get_chunk = _store_chunks(spec.store, dev)
+    else:
+        get_chunk = DevicePlantedChunks(spec.n, wl.da, wl.db, rank=max(cfg.k * 2, 16),
+                                        seed=spec.seed, chunk=wl.chunk, device=dev).get_chunk
     rs, cs = mesh.size(row_axes), mesh.size(col_axis)
     if spec.n % rs or wl.da % cs or wl.db % cs:
         raise ValueError(f"n = {spec.n}, da = {wl.da}, db = {wl.db} do not split over "
@@ -323,7 +378,7 @@ def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
     parts_a, parts_b = [], []
     for idx in range(r0 // wl.chunk, (r1 - 1) // wl.chunk + 1):
         lo = idx * wl.chunk
-        a, b = data.get_chunk(idx, cols_a, cols_b)
+        a, b = get_chunk(idx, cols_a, cols_b)
         lo_r, hi_r = max(r0 - lo, 0), min(r1 - lo, a.shape[0])
         if (lo_r, hi_r) != (0, a.shape[0]):  # a copy, not a view that keeps the chunk
             a, b = a[lo_r:hi_r].clone(), b[lo_r:hi_r].clone()
@@ -332,7 +387,7 @@ def _local_data(mesh, spec: RankSpec, row_axes, col_axis, dev):
         del a, b
     A_l = parts_a[0] if len(parts_a) == 1 else torch.cat(parts_a)
     B_l = parts_b[0] if len(parts_b) == 1 else torch.cat(parts_b)
-    del parts_a, parts_b, data
+    del parts_a, parts_b, get_chunk
     return A_l, B_l, Qa_l, Qb_l
 
 
@@ -351,7 +406,8 @@ def dist_rank(mesh, spec: RankSpec, job: Optional[dict] = None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     job = {} if job is None else job
-    key = (spec.wl, spec.n, spec.seed, tuple(mesh.shape.items()), mesh.rank, spec.device)
+    key = (spec.wl, spec.n, spec.seed, tuple(mesh.shape.items()), mesh.rank, spec.device,
+           spec.store)
     if job.get("key") != key:
         job.clear()
         if dev.type == "cuda":
@@ -419,14 +475,16 @@ def fit_dist(wl: CCAWorkload, *, n_ranks: int, mesh_shape=None, engine: str = DE
              collective: str = "fused", microbatch: Optional[int] = None,
              device=DEFAULT_DEVICE, seed: int = 0, n_chunks: Optional[int] = None,
              gather: bool = False, compute_dtype: str = "float32",
-             timeout: float = 1800.0) -> DistReport:
+             timeout: float = 1800.0, store: Optional[str] = None) -> DistReport:
     """Dist-mode fit of ``wl`` on ``n_ranks`` rank processes laid out as
     ``mesh_shape`` (pod, data, model; default :func:`host_mesh_shape`),
     n cut to ``n_chunks`` chunks, Ω from ``seed``, the passes' products in
-    ``compute_dtype`` (a key of :data:`COMPUTE_DTYPES`).  Builds the
-    kernels first when they will run; any rank's failure raises here."""
+    ``compute_dtype`` (a key of :data:`COMPUTE_DTYPES`); with ``store``
+    (a view store path of ``wl``'s geometry) each rank reads its own rows
+    from it.  Builds the kernels first when they will run; any rank's
+    failure raises here."""
     shape = tuple(mesh_shape) if mesh_shape is not None else host_mesh_shape(n_ranks)
-    run = DistRun(shape, engine, collective, microbatch, compute_dtype)
+    run = DistRun(shape, engine, collective, microbatch, compute_dtype, store)
     return fit_dist_runs(wl, [run], n_ranks=n_ranks, device=device, seed=seed,
                          n_chunks=n_chunks, gather=gather, timeout=timeout)[0]
 
@@ -451,9 +509,22 @@ def fit_dist_runs(wl: CCAWorkload, runs, *, n_ranks: int, device=DEFAULT_DEVICE,
     if dev.type == "cuda" and any(run.engine == "kernels" for run in runs):
         build.build()  # the ranks load what the parent built
     backend, devices = _placement(n_ranks, dev)
+
+    def rows(run) -> int:
+        if run.store is None:
+            return n
+        from ..store import ViewStoreReader
+
+        r = ViewStoreReader(run.store)
+        if (r.da, r.db, r.chunk) != (wl.da, wl.db, wl.chunk):
+            raise ValueError(f"store {run.store}: da={r.da} db={r.db} chunk={r.chunk}, the "
+                             f"workload's {wl.da}, {wl.db}, {wl.chunk}")
+        return r.n
+
     calls = [ranks.Call(dist_rank, [(ranks.OnMesh(tuple(run.mesh_shape)),
-                                     RankSpec(wl, n, seed, run.engine, run.collective,
-                                              run.microbatch, d, gather, run.compute_dtype),
+                                     RankSpec(wl, rows(run), seed, run.engine, run.collective,
+                                              run.microbatch, d, gather, run.compute_dtype,
+                                              run.store),
                                      ranks.JobState())
                                     for d in devices]) for run in runs]
     per_call = ranks.run(calls, n_ranks, backend=backend, devices=devices, timeout=timeout)
@@ -463,7 +534,7 @@ def fit_dist_runs(wl: CCAWorkload, runs, *, n_ranks: int, device=DEFAULT_DEVICE,
         Xa, Xb = (torch.from_numpy(r0[k]).to(dev) if k in r0 else None for k in ("Xa", "Xb"))
         res = RCCAResult(Xa=Xa, Xb=Xb, rho=torch.from_numpy(r0["rho"]), Qa=None, Qb=None,
                          diagnostics={"lam_a": r0["lam_a"], "lam_b": r0["lam_b"], "n": r0["n"]})
-        out.append(DistReport(res, n, dict(zip(("pod", "data", "model"), run.mesh_shape)),
+        out.append(DistReport(res, rows(run), dict(zip(("pod", "data", "model"), run.mesh_shape)),
                               backend, devices, reports))
     return out
 
@@ -534,6 +605,21 @@ def print_cluster(cl: dict) -> None:
                   f"peak device memory {peak}, largest host RSS {w['rss_peak_gb']:.2f} GB")
 
 
+def print_sharded(rep: FitReport, cfg) -> None:
+    """A sharded fit's passes, one line each: seconds, schedule, launches,
+    the slots' device seconds per batch and the read-ahead's IO."""
+    for i, (sec, launches, p, sched) in enumerate(zip(rep.pass_seconds, rep.pass_launches,
+                                                     rep.topology["passes"],
+                                                     rep.pass_schedules)):
+        kind = "final" if i == cfg.q else "power"
+        io = p["io"]
+        dev = ("not on a card" if not p["slot_device_s"] or p["slot_device_s"][0] is None
+               else [[round(x, 3) for x in b] for b in p["slot_device_s"]])
+        print(f"[cca] pass {i} ({kind}): {sec:.3f} s, schedule {sched}, kernel launches "
+              f"{launches}; slot device s per batch {dev}; read {io['read_s']:.3f} s, stall "
+              f"{io['io_stall_s']:.3f} s, {io['bytes'] / 1e9:.3f} GB")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true",
@@ -592,10 +678,21 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="continue a killed store-backed fit from the latest cursor in "
                          "--ckpt-dir")
-    ap.add_argument("--topology", default=None, choices=["local", "cluster"],
+    ap.add_argument("--topology", default=None,
+                    choices=["local", "sharded", "cluster", "hybrid"],
                     help="execution topology of a store-backed fit: local = one process "
-                         "(default), cluster = worker processes (needs --data; bitwise the "
-                         "local fit)")
+                         "(default), sharded = merge groups one per device slot in this "
+                         "process, cluster = worker processes, hybrid = worker processes "
+                         "each over its own device slots (all need --data but local; all "
+                         "bitwise the local fit)")
+    ap.add_argument("--devices", default=None,
+                    help="sharded: the device slots, a count (the first N cards, N host "
+                         "slots with --device cpu; default every card, one host slot) or a "
+                         "list such as cuda:0,cuda:0 (slots sharing a card); hybrid: every "
+                         "worker's slots, workers x devices-per-worker of them (default the "
+                         "cards from w*devices-per-worker on, host slots with --device cpu)")
+    ap.add_argument("--devices-per-worker", type=int, default=2,
+                    help="hybrid: the device slots each worker folds its merge groups over")
     ap.add_argument("--workers", type=int, default=0,
                     help="fit the store across N worker processes through the cluster "
                          "coordinator (needs --data; default 2 under --topology cluster)")
@@ -621,23 +718,29 @@ def main(argv=None):
         overrides["dtype"] = COMPUTE_DTYPES[args.compute_dtype]
     if overrides:
         wl = dataclasses.replace(wl, rcca=dataclasses.replace(wl.rcca, **overrides))
-    if args.data and args.mode == "dist":
-        raise SystemExit("--data is stream mode only: the resident sharded fit over a store "
-                         "is not ported yet (ROADMAP Queue 1 item 3)")
+    if args.mode == "dist" and (args.topology not in (None, "local") or args.workers
+                                or args.ckpt_dir or args.resume):
+        raise SystemExit("--mode dist holds each rank's rows resident (--data: read from the "
+                         "store); --topology, --workers, --ckpt-dir and --resume are stream "
+                         "mode only")
     if not args.data and (args.ingest or args.ckpt_dir or args.resume):
         raise SystemExit("--ingest, --ckpt-dir and --resume need a store: pass --data")
     if args.topology is None and args.workers:
         args.topology = "cluster"
-    cluster = args.topology == "cluster"
-    if cluster and not args.data:
-        raise SystemExit("--topology cluster needs an on-disk store: pass --data (the cluster "
+    cluster = args.topology in ("cluster", "hybrid")
+    sharded = args.topology == "sharded"
+    if (cluster or sharded) and not args.data:
+        raise SystemExit(f"--topology {args.topology} needs an on-disk store: pass --data (it "
                          "cuts a view store into merge groups)")
     if args.workers and not args.data:
         raise SystemExit("--workers needs an on-disk store: pass --data (the cluster "
                          "coordinator shards a view store)")
-    if cluster and (args.ckpt_dir or args.resume):
+    if (cluster or sharded) and (args.ckpt_dir or args.resume):
         raise SystemExit("--ckpt-dir and --resume are the local fit's cursors; cluster "
-                         "workers keep theirs under --cluster-dir")
+                         "workers keep theirs under --cluster-dir, and a device-parallel "
+                         "pass restarts whole")
+    if args.devices is not None and not (cluster or sharded):
+        raise SystemExit("--devices places the slots of --topology sharded or hybrid")
     reader = None
     if args.data:
         from ..store import ViewStoreReader, store_exists
@@ -669,7 +772,8 @@ def main(argv=None):
         rep = fit_dist(wl, n_ranks=n_ranks, mesh_shape=shape, engine=args.engine,
                        collective=args.collective, microbatch=args.microbatch,
                        device=args.device, seed=args.seed, n_chunks=args.n_chunks,
-                       gather=args.gather or args.smoke, compute_dtype=args.compute_dtype)
+                       gather=args.gather or args.smoke, compute_dtype=args.compute_dtype,
+                       store=args.data)
         dt = time.perf_counter() - t0
         shared = rep.devices[0] != "cpu" and len(set(rep.devices)) < len(rep.devices)
         print(f"[cca] dist mode, engine={args.engine}, collective={args.collective}, "
@@ -677,7 +781,8 @@ def main(argv=None):
               f"mesh={rep.mesh}, backend={rep.backend} ({n_ranks} ranks on "
               f"{sorted(set(rep.devices))}{', sharing cards' if shared else ''}), "
               f"n={rep.n} da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q} "
-              f"microbatch={args.microbatch}")
+              f"microbatch={args.microbatch}"
+              f"{', rows read by each rank from ' + args.data if args.data else ''}")
         _print_dist(rep, cfg)
     elif cluster:
         workers = args.workers or 2
@@ -686,16 +791,34 @@ def main(argv=None):
             print("[cca] --prefetch auto is a one-process calibration; cluster workers use "
                   "depth 2")
             prefetch = 2
+        dpw = args.devices_per_worker if args.topology == "hybrid" else 1
         rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
                   omega=args.omega, store=reader, prefetch=prefetch, workers=workers,
-                  cluster_dir=cluster_dir)
+                  cluster_dir=cluster_dir, topology=args.topology, devices=args.devices,
+                  devices_per_worker=dpw)
         dt = time.perf_counter() - t0
-        print(f"[cca] cluster topology, engine={args.engine}, omega={args.omega}, "
-              f"compute_dtype={args.compute_dtype}, device={args.device}, workers={workers}, "
+        slots = f" x {dpw} slots {rep.cluster['worker_slots']}" if dpw > 1 else ""
+        print(f"[cca] {args.topology} topology, engine={args.engine}, omega={args.omega}, "
+              f"compute_dtype={args.compute_dtype}, device={args.device}, workers={workers}"
+              f"{slots}, "
               f"n={rep.n} ({rep.n_chunks} chunks of {wl.chunk}, {rep.cluster['n_groups']} "
               f"merge groups) da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}, "
               f"cluster_dir={cluster_dir}")
         print_cluster(rep.cluster)
+    elif sharded:
+        if prefetch == "auto":
+            print("[cca] --prefetch auto is a one-process calibration; the slots use depth 2")
+            prefetch = 2
+        rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
+                  omega=args.omega, store=reader, prefetch=prefetch, topology="sharded",
+                  devices=args.devices)
+        dt = time.perf_counter() - t0
+        topo = rep.topology
+        print(f"[cca] sharded topology, engine={args.engine}, omega={args.omega}, "
+              f"compute_dtype={args.compute_dtype}, slots {topo['slots']}, n={rep.n} "
+              f"({rep.n_chunks} chunks of {wl.chunk}, {topo['n_groups']} merge groups of "
+              f"{topo['merge_group']}) da={wl.da} db={wl.db} k={cfg.k} p={cfg.p} q={cfg.q}")
+        print_sharded(rep, cfg)
     else:
         rep = fit(wl, engine=args.engine, device=args.device, seed=args.seed,
                   n_chunks=args.n_chunks, omega=args.omega, store=reader,
@@ -720,6 +843,7 @@ def main(argv=None):
     print(f"[cca] done in {dt:.1f}s; sum rho = {float(rho.sum()):.4f}; "
           f"top-5 rho = {[round(float(r), 6) for r in rho[:5]]}")
     if args.mode == "stream" and not cluster and torch.device(args.device).type == "cuda":
+        # a sharded fit's slots may sit on other cards: this is the current card's peak
         rss_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         print(f"[cca] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
               f"peak host RSS {rss_kib * 1024 / 1e9:.2f} GB (closed merge groups live there)")

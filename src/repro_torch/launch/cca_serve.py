@@ -36,8 +36,10 @@ plain updates).  ``--trace [DIR]`` records a ``repro_torch.obs`` trace
 (``RCCA_TRACE``, default directory ``rcca_trace/``): the fit's and the
 refit's spans, the serving spans and the drift, swap, occupancy and
 registry counters; the report is printed at the end.  ``--topology
-sharded`` is not ported yet and exits with the ROADMAP item that brings
-it.  Exits non-zero when
+sharded`` fits and refits with merge groups folded one per device slot
+(``--devices``: a count or a slot list such as ``cuda:0,cuda:0``;
+default every card, or one host slot): bitwise the local fit.  Exits
+non-zero when
 the drift is not flagged, a request is dropped, the swap does not show
 both versions, or the correlation does not recover.
 """
@@ -77,7 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--engine", default=DEFAULT_ENGINE, choices=["kernels", "torch"])
     ap.add_argument("--omega", default="materialized", choices=list(OMEGA_MODES))
     ap.add_argument("--topology", default="local", choices=["local", "sharded"],
-                    help="fit/refit topology (sharded: ROADMAP Queue 1 item 3)")
+                    help="fit/refit topology (sharded: merge groups one per device slot)")
+    ap.add_argument("--devices", default=None,
+                    help="sharded: the device slots, a count or a list such as cuda:0,cuda:0")
     ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--q", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -100,17 +104,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 def serve(args: argparse.Namespace) -> dict:
     """The six stages → a report: versions, Σρ, drift means, the swap's
     versions seen and dropped requests, projector stats and timings."""
-    from ..exec import FitState, delta_refit, fit_with_state
+    from ..exec import FitState, Local, Sharded, delta_refit, fit_with_state
     from ..serve import BatchedProjector, CorpusIndex, DriftMonitor, ModelRegistry
     from ..store import ViewStoreReader, extend_chunks, ingest_chunks, store_exists
 
     if args.trace:
         os.environ[obs.TRACE_ENV] = args.trace
         print(f"[serve] tracing -> {obs.trace_dir()}/", flush=True)
-    if args.topology == "sharded":
-        raise SystemExit("[serve] --topology sharded: the streaming Sharded topology is not "
-                         "ported yet (ROADMAP Queue 1 item 3); use --topology local")
     dev = resolve_device(args.device)
+    topology = Local() if args.topology == "local" else Sharded(devices=args.devices)
 
     # -- corpus geometry: two tranches + held-out traffic -----------------
     # the first tranche ends on a merge-group boundary (the delta refit's
@@ -142,7 +144,7 @@ def serve(args: argparse.Namespace) -> dict:
           f"({reader.n_chunks} chunks)", flush=True)
     t0 = time.time()
     res, state = fit_with_state(reader, cfg, args.seed, engine=args.engine, omega=args.omega,
-                                merge_group=merge_group, device=dev)
+                                merge_group=merge_group, device=dev, topology=topology)
     v1 = reg.publish(args.name, res, fit_meta=state.meta)
     state.save(_fitstate_dir(args.registry, args.name))
     rep["sum_rho_v1"] = float(res.rho.double().sum())
@@ -189,7 +191,8 @@ def serve(args: argparse.Namespace) -> dict:
         extend_chunks(args.store, (data.get_chunk(i) for i in range(c0, c1)))
         reader = ViewStoreReader(args.store)
         state = FitState.load(_fitstate_dir(args.registry, args.name))
-        res2, state2 = delta_refit(state, reader, mode="exact", device=dev)
+        res2, state2 = delta_refit(state, reader, mode="exact", device=dev,
+                                   topology=topology)
         d = res2.diagnostics["delta"]
         rep["sum_rho_v2"] = float(res2.rho.double().sum())
         print(f"[serve] delta-refit in {time.time() - t0:.1f}s: +{reader.n - n0} rows, "

@@ -37,8 +37,9 @@ from typing import Any, Dict, List, Optional
 
 from .trace import load_events
 
-#: span names whose time is a leaf fold phase (``mesh_fold``: the
-#: reference's device-parallel fold, not ported yet, read in its traces)
+#: span names whose time is a leaf fold phase (``mesh_fold``: one batch of
+#: the device-parallel fold, ``exec.fold_groups_on_mesh``, whose ``chunk``
+#: spans carry no cost, so a batch counts once; timed by the host clock)
 _FOLD_SPANS = ("chunk", "mesh_fold")
 
 

@@ -1,8 +1,6 @@
 """Pass orchestration: drive the CCA data passes from an on-disk store.
 
-Port of ``repro/store/passes.py`` (``fit_dist``, the resident sharded fit
-over a store, is not ported: ROADMAP Queue 1 item 3).  ``PassRunner``
-joins three layers:
+Port of ``repro/store/passes.py``.  ``PassRunner`` joins three layers:
 
 - the store (:mod:`repro_torch.store.format`), streamed pass by pass
   through a prefetcher (:mod:`repro_torch.store.prefetch`): disk reads
@@ -25,6 +23,11 @@ On a card, how far ahead chunks go is a residency rule computed up front
 beside the pass state, and ``prefetch`` page-locked host pairs within
 half the host's free memory.
 
+:class:`SlotSet` is the same pipeline for the device slots of a mesh
+fold (the Sharded topology, a Hybrid worker): each slot's device and
+stream, its page-locked host slots and device ring, and the residency
+rule of each card with the slots (and the processes) that share it.
+
 ``prefetch="auto"`` / ``sync_chunks="auto"`` choose the pipeline from a
 calibration window (:func:`choose_pipeline`).  Per-pass read, stall and
 rate numbers land in ``RCCAResult.diagnostics["io"]``.
@@ -32,10 +35,11 @@ rate numbers land in ``RCCAResult.diagnostics["io"]``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -47,7 +51,7 @@ from ..core.rcca import (DEFAULT_ENGINE, RCCAConfig, RCCAResult, algo_meta, reso
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..exec import MERGE_GROUP_CHUNKS, PassEngine, SegmentedAccumulator
 from .format import ViewStoreReader
-from .prefetch import DeviceStaging, HostSlots, HostStaging, prefetched
+from .prefetch import DeviceStaging, HostSlots, HostStaging, SlotStaging, prefetched
 
 #: Cursor layout version: a cursor of another layout fails loudly.
 CURSOR_FMT = 2
@@ -111,6 +115,138 @@ def residency_line(rule: dict) -> str:
             f"{rule['card_total_gb']:.2f}: {ahead}; "
             f"host slots {rule['host_slots']} of {rule['host_slots_wanted']} wanted "
             f"({rule['host_free_gb']:.2f} GB host memory free)")
+
+
+class SlotSet:
+    """The device slots of a mesh fold over one chunk source.
+
+    access:   a ``ViewStoreReader`` (or ``exec.StackedChunks``): the chunk
+              geometry and storage dtype of the host slots;
+    cfg:      the :class:`RCCAConfig` (the residency rule's pass state);
+    devices:  the slots (``exec.topology.resolve_slots``), a card possibly
+              more than once;
+    prefetch: read-ahead chunk pairs per slot (0: synchronous reads);
+    share:    processes that fold on the same cards side by side (a Hybrid
+              fit's workers).
+
+    On a card each slot has its own CUDA stream, made here.  The rule of
+    :func:`residency` is computed (and printed) once per card, its share
+    the card's slots × ``share``; the host's half of free memory is split
+    between the slots.  Page-locked host slots are made at the first fold
+    and kept until :meth:`close`.  ``io`` collects each fold's read-ahead
+    numbers.
+    """
+
+    def __init__(self, access, cfg: RCCAConfig, devices, *, prefetch: int = 2, share: int = 1):
+        self.access = access
+        self.devices = [torch.device(d) for d in devices]
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
+        self.prefetch = int(prefetch)
+        self.rules: dict = {}
+        self.depth = self.prefetch
+        cards = [d for d in dict.fromkeys(self.devices) if d.type == "cuda"]
+        for card in cards:
+            here = sum(d == card for d in self.devices)
+            rule = residency(access, cfg, card, self.prefetch * len(self.devices),
+                             share=here * max(1, int(share)))
+            print(residency_line(rule) + f" [{card}: {here} slot(s)]", flush=True)
+            self.rules[card] = rule
+        if cards and self.prefetch:
+            host = self.rules[cards[0]]["host_slots"]
+            self.depth = max(1, min(self.prefetch, host // len(self.devices)))
+        self._host: List[Optional[HostSlots]] = [None] * len(self.devices)
+        self.io: List[dict] = []
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def context(self, i: int):
+        """Slot ``i``'s device and stream current (nothing on the host)."""
+        stack = contextlib.ExitStack()
+        if self.streams[i] is not None:
+            stack.enter_context(torch.cuda.device(self.devices[i]))
+            stack.enter_context(torch.cuda.stream(self.streams[i]))
+        return stack
+
+    def _staging(self, i: int):
+        dev = self.devices[i]
+        if dev.type != "cuda":
+            return HostStaging(getattr(self.access, "dtype", None))
+        if self._host[i] is None:
+            a = self.access
+            self._host[i] = HostSlots(a.chunk, a.da, a.db, a.torch_dtype)
+        self._host[i].ensure(max(1, self.depth))
+        with self.context(i):  # the consumer's stream is the slot's
+            return DeviceStaging(dev, self._host[i], lookahead=self.rules[dev]["lookahead"])
+
+    def prefetcher(self, chunks, slot_ids):
+        """One read-ahead over ``chunks`` (raw chunks in pull order), the
+        k-th delivered on slot ``slot_ids[k]``."""
+        staging = SlotStaging([self._staging(i) for i in range(len(self))], slot_ids)
+        return prefetched(chunks, depth=self.depth * len(self) if self.prefetch else 0,
+                          staging=staging, site="mesh_gather")
+
+    def place(self, Qa, Qb) -> list:
+        """Each slot's Qa/Qb: seeds as they are, tensors on the slot's
+        device (one copy per other card)."""
+        if isinstance(Qa, tuple):
+            return [(Qa, Qb)] * len(self)
+        copies: dict = {}
+        for d in self.devices:
+            if d not in copies:
+                copies[d] = (Qa, Qb) if Qa.device == d else (Qa.to(d), Qb.to(d))
+        return [copies[d] for d in self.devices]
+
+    def follow_current(self) -> None:
+        """Each slot's stream waits for what its card's current stream has
+        queued (Q, the accumulator's state)."""
+        for d, s in zip(self.devices, self.streams):
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(d))
+
+    def on_slot(self, i: int, pair, dtype: torch.dtype):
+        """A delivered chunk as row-major tensors in ``dtype`` on slot
+        ``i`` (no copy when it is already so)."""
+        with self.context(i):
+            return tuple(torch.as_tensor(x, device=self.devices[i], dtype=dtype).contiguous()
+                         for x in pair)
+
+    def mark(self, n: int) -> dict:
+        """Timing events at the start of a batch on the first ``n`` slots."""
+        events = None
+        if any(s is not None for s in self.streams[:n]):
+            events = []
+            for s in self.streams[:n]:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(s)
+                events.append(ev)
+        return {"n": n, "events": events}
+
+    def wait(self, marks: dict) -> Optional[list]:
+        """The batch's host wait: every stream of its slots done → each
+        slot stream's seconds since :meth:`mark` (None on the host)."""
+        n, starts = marks["n"], marks["events"]
+        if starts is None:
+            return None
+        ends = []
+        for s in self.streams[:n]:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(s)
+            ends.append(ev)
+        for ev in ends:
+            ev.synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(starts, ends)]
+
+    def close(self) -> None:
+        """Unlock the host slots and release the streams' work."""
+        for s in self.streams:
+            if s is not None:
+                s.synchronize()
+        for h in self._host:
+            if h is not None:
+                h.close()
+        self._host = [None] * len(self.devices)
 
 
 class _CalibratingSource:

@@ -19,6 +19,11 @@ Where the chunks land is the *staging*:
   last used it, so a delivered chunk is valid until the next pull.  A
   host buffer is refilled only after its last copy has completed.
 
+A mesh fold's slots each have a staging of their own (on a card: their
+own host slots, copy stream and device ring, the slot's stream the
+consumer), and one prefetcher feeds them all in pull order through a
+:class:`SlotStaging`.
+
 Both prefetchers meter the pipeline as the reference's do: ``read_s``
 (the producer's reads: disk or page cache into memory), ``stall_s`` (the
 consumer blocked on the queue), ``chunks``, ``rows`` and ``bytes``.  An
@@ -252,6 +257,40 @@ class DeviceStaging:
         self.release()
         self.copy_stream.synchronize()
         self._bufs = [None] * len(self._bufs)
+
+
+class SlotStaging:
+    """Route a mesh fold's chunks to their device slots' stagings
+    (``exec.fold_groups_on_mesh``): the k-th chunk staged goes to slot
+    ``slot_ids[k]`` and is delivered in the same order; a pull releases
+    the chunk delivered before it, in its own slot's staging (whose fold
+    the consumer has queued by then)."""
+
+    def __init__(self, stagings, slot_ids):
+        self.stagings = list(stagings)
+        self._ids = list(slot_ids)
+        self._staged = 0
+        self._last: Optional[int] = None
+
+    def stage(self, item, stop: threading.Event):
+        i = self._ids[self._staged]
+        self._staged += 1
+        handle, read_s = self.stagings[i].stage(item, stop)
+        return (i, handle), read_s
+
+    def deliver(self, staged):
+        i, handle = staged
+        self._last = i
+        return self.stagings[i].deliver(handle)
+
+    def release(self) -> None:
+        if self._last is not None:
+            self.stagings[self._last].release()
+            self._last = None
+
+    def close(self) -> None:
+        for s in self.stagings:
+            s.close()
 
 
 def _stats(m) -> dict:

@@ -26,8 +26,8 @@ from repro_torch.cluster import ClusterCoordinator, WorkerKilled, run_worker
 from repro_torch.cluster import partials as pt
 from repro_torch.core import rcca as tr
 from repro_torch.data import PlantedCCAData
-from repro_torch.exec import (Cluster, PairwiseStack, SegmentedAccumulator, SpanCombiner,
-                              as_topology, fit, reduce_group_partials)
+from repro_torch.exec import (Cluster, Hybrid, PairwiseStack, SegmentedAccumulator,
+                              SpanCombiner, as_topology, fit, reduce_group_partials)
 from repro_torch.store import ingest_planted
 
 N, DA, DB, CHUNK = 1536, 28, 20, 128  # 12 chunks
@@ -197,11 +197,16 @@ def test_stack_close_stops_the_worker_and_is_idempotent():
 
 
 def test_as_topology_cluster_and_unported_layouts():
+    """Every layout is ported now: ``"hybrid"`` is the reference's
+    ``Hybrid`` (2 workers × 4 slots by default) and checks its own."""
     assert as_topology("cluster") == Cluster() and Cluster(3).devices_per_worker == 1
     with pytest.raises(ValueError, match="at least one worker"):
         Cluster(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        as_topology("hybrid")
+    assert as_topology("hybrid") == Hybrid() and Hybrid().devices_per_worker == 4
+    with pytest.raises(ValueError, match="at least one device per worker"):
+        Hybrid(2, 0)
+    with pytest.raises(ValueError, match="2 × 2 devices"):
+        Hybrid(2, 2, devices=("cpu",) * 3)
 
 
 # -- rounds and partials on disk -------------------------------------------------
@@ -385,11 +390,17 @@ def test_worker_refuses_the_card_without_cuda(store, tmp_path):
 
 
 def test_worker_cli_refuses_device_meshes():
+    """``--devices`` makes a Hybrid worker now; the worker refuses the
+    slot lists it cannot place (slots of another kind than ``--device``,
+    no slot at all) before it reads anything."""
     from repro_torch.cluster import worker
 
-    with pytest.raises(SystemExit, match="Queue 1 item 3"):
-        worker.main(["--store", "s", "--cluster-dir", "c", "--shard", "0", "--n-shards", "1",
-                     "--pass-idx", "0", "--devices", "2"])
+    argv = ["--store", "s", "--cluster-dir", "c", "--shard", "0", "--n-shards", "1",
+            "--pass-idx", "0", "--device", "cpu"]
+    with pytest.raises(ValueError, match="not on 'cpu'"):
+        worker.main(argv + ["--devices", "cuda:0,cuda:0"])
+    with pytest.raises(ValueError, match="at least one device slot"):
+        worker.main(argv + ["--devices", "0"])
 
 
 

@@ -247,15 +247,22 @@ def test_fitstate_save_load_roundtrip(fit_old, grown_store, tmp_path):
 
 @pytest.mark.parametrize("topology", [Sharded(), "sharded", Cluster(2), "cluster", "hybrid"])
 def test_topologies_other_than_local_are_rejected(fit_old, old_store, grown_store, topology):
-    _, state = fit_old
+    """Local and Sharded capture and refit (the Sharded pair bitwise the
+    Local one: tests/test_torch_topologies.py holds more); Cluster and
+    Hybrid are rejected, as the reference rejects them."""
+    res_old, state = fit_old
     name = topology if isinstance(topology, str) else topology.name
-    err = NotImplementedError if name == "sharded" else ValueError
-    match = "ROADMAP Queue 1 item 3" if name == "sharded" else "Local and Sharded"
-    with pytest.raises(err, match=match):
+    want = delta_refit(state, grown_store, topology=Local(), device="cpu")[0]
+    if name == "sharded":
+        res, sstate = fit_with_state(old_store, CFG, SEED, topology=topology, device="cpu",
+                                     merge_group=G)
+        _same(res, res_old)
+        _same(delta_refit(sstate, grown_store, topology=topology, device="cpu")[0], want)
+        return
+    with pytest.raises(ValueError, match="Local and Sharded"):
         fit_with_state(old_store, CFG, SEED, topology=topology, device="cpu")
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match="Local and Sharded"):
         delta_refit(state, grown_store, topology=topology, device="cpu")
-    assert delta_refit(state, grown_store, topology=Local(), device="cpu")[0] is not None
 
 
 # -- against the reference -----------------------------------------------------

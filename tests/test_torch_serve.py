@@ -446,5 +446,13 @@ def test_cca_serve_cli_loop(tmp_path, capsys):
          "--registry", str(tmp_path / "reg_t"), "--engine", "torch", "--omega", "seeded"]))
     assert rep["versions_seen"] == [1, 2] and rep["dropped"] == 0
     assert rep["delta"]["delta_chunks"] == C1 - C0 and rep["recovered"] >= 0.8 * rep["baseline"]
-    with pytest.raises(SystemExit, match="item 3"):
-        cca_serve.main(argv + ["--topology", "sharded"])
+    # the Sharded fit and refit (three host slots): the local loop's numbers
+    rep_s = cca_serve.serve(cca_serve.parse_args(
+        ["--smoke", "--device", "cpu", "--store", str(tmp_path / "store_s"), "--registry",
+         str(tmp_path / "reg_s"), "--topology", "sharded", "--devices", "3"]))
+    rep_l = cca_serve.serve(cca_serve.parse_args(
+        ["--smoke", "--device", "cpu", "--store", str(tmp_path / "store_l"), "--registry",
+         str(tmp_path / "reg_l")]))
+    assert rep_s["versions_seen"] == [1, 2] and rep_s["dropped"] == 0
+    for key in ("sum_rho_v1", "sum_rho_v2"):
+        assert rep_s[key] == rep_l[key], key

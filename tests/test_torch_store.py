@@ -495,11 +495,11 @@ def test_exec_fit_runs_local_and_refuses_other_topologies(fit_store):
     a = fit(reader.path, cfg, 2, device="cpu")
     b = fit(reader, cfg, 2, topology=Local(), prefetch=0, device="cpu")
     assert torch.equal(a.rho, b.rho)
-    for topo in (Sharded(), "sharded", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    for topo in (Sharded(), "sharded", Sharded(devices=3)):  # ported: bitwise the Local fit
+        assert torch.equal(fit(reader, cfg, 2, topology=topo, device="cpu").rho, a.rho)
+    for topo in ("cluster", "hybrid"):  # ported; they need their directory
+        with pytest.raises(ValueError, match="cluster_dir"):
             fit(reader, cfg, 2, topology=topo, device="cpu")
-    with pytest.raises(ValueError, match="cluster_dir"):  # the Cluster topology is ported
-        fit(reader, cfg, 2, topology="cluster", device="cpu")
 
 
 def test_open_source_seeks_by_name_and_n_full_chunks(fit_store, corpus, store):
@@ -554,9 +554,12 @@ def test_cca_fit_data_flag(tmp_path, capsys):
 def test_cca_fit_store_flags_are_checked(tmp_path):
     from repro_torch.launch import cca_fit
 
+    # --mode dist --data reads each rank's rows (tests/test_torch_hybrid.py); the
+    # cursors stay stream mode's
     with pytest.raises(SystemExit, match="stream mode only"):
         cca_fit.main(["--smoke", "--device", "cpu", "--mode", "dist", "--data",
-                      str(tmp_path / "s")])
+                      str(tmp_path / "s"), "--ckpt-dir", str(tmp_path / "c")])
+    assert not os.path.exists(tmp_path / "s")
     with pytest.raises(SystemExit, match="need a store"):
         cca_fit.main(["--smoke", "--device", "cpu", "--resume"])
 
