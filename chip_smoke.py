@@ -81,7 +81,7 @@ Phases, each of which fails the run by raising:
    device memory; then the paper's other oversampling, ``--p 910``
    (k̃ = 970), where the final pass recomputes: kernels engine (2
    ``projgram`` + 1 ``matmul_tn`` per final chunk, no ``gram_sweep``)
-   against the torch engine (``P910_CHUNKS`` = 4), and ``--q 0 --omega
+   against the torch engine (``P910_CHUNKS`` = 2), and ``--q 0 --omega
    seeded`` bitwise ``--omega seeded-materialized`` (``PAIR_CHUNKS``);
 8. matmul_nn — ``matmul_nn`` (the port of ``_mm_nn_kernel``) at one
    microbatch of one model shard at Europarl width (4096 × 2^18 · 2^18 ×
@@ -150,7 +150,7 @@ Phases, each of which fails the run by raising:
 13. stream bf16 (after phase 7) — ``cca_fit --compute-dtype bfloat16``:
     at Europarl width (p = 2000, both passes staged) ``--omega seeded``
     bitwise ``seeded-materialized`` (``PAIR_CHUNKS``), the kernels engine
-    against the torch engine (``BF16_PAIR_CHUNKS`` = 4, |Δρ| ≤ 1e-3);
+    against the torch engine (``BF16_PAIR_CHUNKS`` = 2, |Δρ| ≤ 1e-3);
     ``--p 910 --q 0``
     seeded bitwise its oracle (``PAIR_CHUNKS``); the smoke width, centered (both
     passes recompute):
@@ -204,7 +204,33 @@ Phases, each of which fails the run by raising:
     a 512-row launch's rows ≡ a 32-row launch's ≡ each alone, the index's
     256-row tail ≡ its rows alone, bitwise, and at buckets 1, 32 and 512
     within 4·√K·u of its plain version, with times beside the plain
-    version, one ``torch.matmul`` and the bound (``serve_kernel``).
+    version, one ``torch.matmul`` and the bound (``serve_kernel``);
+17. horst kernels (after phase 8, on phase 3's rows) — the paper's Horst
+    baseline streams products of width k = 60: ``proj_stage`` (8192 × 2^19
+    → 60), ``powerpass_sweep(out=)`` (2^19 × 60 over 8192 rows) and
+    ``power_project_accumulate(a, a, V, out=)`` on the schedule the rule
+    resolves (staged there; bitwise its staged pair), each within 4·√K·u
+    of its plain version and bitwise repeatable, timed beside the plain
+    version, one PyTorch call (yardstick only) and the bound, with the
+    tile ``plan.f32_tile`` picks, its tile count and waves
+    (``phase_horst_kernels``);
+18. horst (after phase 7) — Horst+rcca at Europarl width: streaming Horst
+    (``repro_torch.core.horst``) over the first ``HORST_CHUNKS`` = 4 of
+    phase 7's chunks (the same planted rows; d = 2^19 and k = 60 uncut),
+    warm from phase 7's kernels-engine ``Xa``, ``Xb`` (one iteration of 2
+    CG steps) on the kernels and the torch engine, and cold from a seeded
+    Gaussian (one iteration of 3 CG steps: at least the warm run's
+    passes), λ phase 7's scaled to the rows Horst sees; each run's pass
+    count the reference's formula, its launches passes × chunks × the
+    ``ops`` table, ρ in [0, 1]; |Δρ| ≤ 1e-3 between the engines and the
+    warm Σρ above the cold one (Table 2b's direction); each pass's seconds
+    and the peak device memory printed (``phase_horst``);
+19. horst smoke — dense ``horst_cca`` (Cholesky and CG) and streaming
+    Horst at the smoke width on the card against the port's CPU run on
+    the same rows and start (ρ within 1e-4, sign-aligned X within 1e-3
+    relative), with their launches, then ``examples/europarl_cca_torch.py``
+    at its defaults (4,096 slots: hashing, the streamed fit, Horst+rcca),
+    which must end in ``OK`` (``phase_horst_smoke``).
 
 Every fit resets the launch counters just before it and reads them just
 after, and every kernels-engine stream fit, f32 or bf16, prints the first
@@ -246,16 +272,20 @@ N_CHUNKS = 16  # two merge groups of 8: the pairwise tree merges once
 # at any depth (cut from 16 to 8, to 4, then to 2, for the time limit)
 PAIR_CHUNKS = 2
 # the p = 910 kernels-against-torch pair: part of one merge group (cut from
-# 16 to 8, then to 4, for the time limit)
-P910_CHUNKS = 4
+# 16 to 8, to 4, then to 2, for the time limit)
+P910_CHUNKS = 2
 # the bf16 kernels-against-torch pair: part of one merge group, where the
-# engines' agreement holds as at any depth (cut from 16 for the time limit;
-# the 16-chunk f32 fits keep the tree's merge of full-width stats)
-BF16_PAIR_CHUNKS = 4
+# engines' agreement holds as at any depth (cut from 16 to 4, then to 2, for
+# the time limit; the 16-chunk f32 fits keep the tree's merge of full-width
+# stats)
+BF16_PAIR_CHUNKS = 2
+# phase 18's streaming Horst at Europarl width: the first chunks of phase 7's
+# rows (depth cut for the time limit; d = 2^19 and k = 60 uncut)
+HORST_CHUNKS = 4
 # the streaming Sharded topology's slots on the one card: two streams
 SHARDED_SLOTS = ("cuda:0", "cuda:0")
-# timed runs of a plain version at the main path's shapes, after its warm-up
-# (a yardstick, not a kernel: cut from 3 for the time limit)
+# timed runs of a plain version at the main path's shapes (a yardstick, not a
+# kernel: cut from 3 for the time limit); see time_plain
 PLAIN_REPS = 1
 SEED = 0
 # Threefry-2x32-20 (60 add/rotate/xor, 5 two-add key injections, the key
@@ -343,12 +373,13 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
-    each between two CUDA events."""
+def time_ms(fn, reps: int, *, warm: bool = True) -> float:
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up
+    (none with ``warm=False``), each between two CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -358,6 +389,13 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def time_plain(fn) -> float:
+    """A plain version at the main path's shapes, timed ``PLAIN_REPS``
+    times without a warm-up of its own: it has just run on the same
+    inputs in its check (the warm-up was cut for the time limit)."""
+    return time_ms(fn, PLAIN_REPS, warm=False)
 
 
 def cases(a, b, Qa, Qb):
@@ -448,7 +486,7 @@ def phase_kernels(dev, a, b) -> dict:
         heavy = flops > 1e12
         reps = 3 if heavy else 10
         t = {"ms": time_ms(kern, reps),
-             "plain_ms": time_ms(plain, PLAIN_REPS if heavy else reps),
+             "plain_ms": time_plain(plain) if heavy else time_ms(plain, reps),
              "library_ms": time_ms(lib, reps)}
         rows[name] = dict(max_abs_err=err, **bound(flops, nbytes), **t)
         print(f"[smoke] {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -546,7 +584,7 @@ def phase_omega(dev) -> dict:
     if not pad_ok:
         raise AssertionError("omega_fill's ragged edge is wrong")
     t = {"ms": time_ms(lambda: rand.omega_fill(seed, d, kt, device=dev), 10),
-         "plain_ms": time_ms(lambda: rand.omega_tile(seed, d, kt, device=dev), PLAIN_REPS),
+         "plain_ms": time_plain(lambda: rand.omega_tile(seed, d, kt, device=dev)),
          "library_ms": None}
     row = dict(max_abs_err=err, **bound(0, 4 * d * kt, OMEGA_INT_OPS * d * kt), **t)
     print(f"[smoke] omega_fill: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -580,7 +618,7 @@ def phase_seeded(dev, b) -> dict:
         if not same:
             raise AssertionError("proj_stage_seeded is not the materialized stage bitwise")
     t = {"ms": time_ms(lambda: proj_stage_seeded(b, seed, kt), 3),
-         "plain_ms": time_ms(lambda: ref.proj_stage_seeded_ref(b, seed, kt), PLAIN_REPS),
+         "plain_ms": time_plain(lambda: ref.proj_stage_seeded_ref(b, seed, kt)),
          "library_ms": time_ms(lambda: b @ omega, 3)}
     flops = 2 * n * d * kt
     row = dict(max_abs_err=err, **bound(flops, 4 * (n * d + n * kt), OMEGA_INT_OPS * d * kt),
@@ -735,7 +773,7 @@ def phase_recompute(dev, a, b) -> dict:
     for name, (rec, staged, plain, lib, Ks, flops, nbytes, int_ops) in cases.items():
         err = check_fused(name, rec, staged, plain, Ks)
         t = {"ms": time_ms(rec, 3), "staged_ms": time_ms(staged, 3),
-             "plain_ms": time_ms(plain, PLAIN_REPS),
+             "plain_ms": time_plain(plain),
              "library_ms": None if lib is None else time_ms(lib, 3)}
         rows[name] = dict(max_abs_err=err, **bound(flops, nbytes, int_ops), **t)
         lib_txt = ("none" if lib is None else
@@ -1001,7 +1039,7 @@ def phase_bf16_kernels(dev, a16, b16) -> dict:
         heavy = tc_flops + flops > 1e12
         reps = 3 if heavy else 10
         t = {"ms": time_ms(call, reps),
-             "plain_ms": time_ms(plain, PLAIN_REPS if heavy else reps),
+             "plain_ms": time_plain(plain) if heavy else time_ms(plain, reps),
              "library_ms": None if lib is None else time_ms(lib, reps)}
         if name == "powerpass_sweep[bf16,f32]":
             # the yardstick on A upcast to f32 beforehand, as the seeded rows'
@@ -1195,9 +1233,11 @@ def phase_smoke_fits(dev) -> dict:
             "power_project_accumulate_seeded": launches_s["power_project_accumulate_seeded"]}
 
 
-def phase_fit(dev) -> dict:
+def phase_fit(dev) -> tuple[dict, dict]:
     """The main path's four Europarl-width runs at p = 2000 (both passes
-    staged); returns each kernel's launches in the run that drives it."""
+    staged); returns each kernel's launches in the run that drives it, and
+    the kernels-engine fit's ``Xa``, ``Xb``, λ and Σρ (phase 18's warm
+    start)."""
     import torch
 
     from repro_torch.configs.europarl_cca import config
@@ -1223,6 +1263,8 @@ def phase_fit(dev) -> dict:
     rho_k = rep_k.result.rho.double().cpu()
     Xa_shape = tuple(rep_k.result.Xa.shape)
     finite = all(bool(torch.isfinite(t).all()) for t in rep_k.result[:3])
+    fit = {"Xa": rep_k.result.Xa, "Xb": rep_k.result.Xb, "sum_rho": float(rho_k.sum()),
+           **{k: float(rep_k.result.diagnostics[k]) for k in ("lam_a", "lam_b")}}
     del rep_k
 
     rep_t, launches_t, _, _ = run_fit(argv + ["--engine", "torch"], "torch engine")
@@ -1273,7 +1315,7 @@ def phase_fit(dev) -> dict:
         raise AssertionError("the seeded fit held more device memory than its materialized "
                              "twin")
     return {**launches, "omega_fill": launches_m.get("omega_fill", 0),
-            "proj_stage_seeded": launches_s.get("proj_stage_seeded", 0)}
+            "proj_stage_seeded": launches_s.get("proj_stage_seeded", 0)}, fit
 
 
 def phase_fit_910(dev) -> dict:
@@ -1326,6 +1368,308 @@ def phase_fit_910(dev) -> dict:
         raise AssertionError("p=910 q=0: seeded is not bitwise its oracle, or rho leaves [0, 1]")
     return {"projgram": launches_k["projgram"],
             "projgram_seeded": launches_s["projgram_seeded"]}
+
+
+def horst_kernel_cases(a, V):
+    """Phase 17's three products at Horst's shape, the planted rows a
+    (n, d) against V (d, k): per entry point (call, plain, timed call,
+    library call, K, FLOPs, bytes, output shape).  The checked calls add
+    into a copy of an accumulator holding one chunk's ΔY (``out=``, as
+    every chunk after a pass's first does); the timed ones into one
+    accumulator in place."""
+    import torch
+
+    from repro_torch.kernels import power_project_accumulate, powerpass_sweep, proj_stage, ref
+
+    (n, d), k = a.shape, V.shape[1]
+    P = proj_stage(a, V)
+    acc0 = ref.powerpass_sweep_ref(a, P)
+    acc = acc0.clone()
+    flops = 2 * n * d * k
+    return {
+        "proj_stage": (lambda: proj_stage(a, V), lambda: ref.proj_stage_ref(a, V),
+                       lambda: proj_stage(a, V), lambda: a @ V, d, flops,
+                       4 * (n * d + d * k + n * k), (n, k)),
+        "powerpass_sweep": (lambda: powerpass_sweep(a, P, out=acc0.clone()),
+                            lambda: acc0 + ref.powerpass_sweep_ref(a, P),
+                            lambda: powerpass_sweep(a, P, out=acc),
+                            lambda: torch.addmm(acc, a.T, P), n, flops,
+                            4 * (n * d + n * k + 2 * d * k), (d, k)),
+        "power_project_accumulate": (
+            lambda: power_project_accumulate(a, a, V, out=acc0.clone()),
+            lambda: acc0 + ref.power_project_accumulate_ref(a, a, V),
+            lambda: power_project_accumulate(a, a, V, out=acc),
+            lambda: torch.linalg.multi_dot([a.T, a, V]), d + n, 2 * flops,
+            4 * (n * d + d * k + 2 * d * k), (d, k)),
+    }
+
+
+def phase_horst_kernels(dev, a) -> None:
+    """Phase 17: the kernels of streaming Horst at its skinny shape — the
+    main path's planted rows (8192 × 2^19) against V of 2^19 × k = 60:
+    ``proj_stage``, ``powerpass_sweep(out=)`` and ``power_project_accumulate
+    (a, a, V, out=)`` on the schedule the rule resolves, each within
+    4·√K·u of its plain version and bitwise repeatable, the last bitwise
+    its staged pair; median times beside the plain version, one PyTorch
+    call (yardstick only) and the bound, with the tile ``plan.f32_tile``
+    picks, its tile count and waves."""
+    import torch
+
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.kernels import (choose_powerpass_schedule, power_project_accumulate,
+                                     powerpass_sweep, proj_stage)
+
+    (n, d), k = a.shape, config().rcca.k
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 29)
+    V = torch.randn((d, k), generator=g, device=dev)
+    sched = choose_powerpass_schedule(n, d, d, k, accumulate=True)
+    print(f"[smoke] horst kernels: rows {tuple(a.shape)}, V {tuple(V.shape)}; the rule's "
+          f"schedule for aᵀ(a·V) into an accumulator: {sched}", flush=True)
+    acc = torch.randn((d, k), generator=g, device=dev)
+    staged = powerpass_sweep(a, proj_stage(a, V), out=acc.clone())
+    same = torch.equal(power_project_accumulate(a, a, V, out=acc.clone()), staged)
+    print(f"[smoke] horst kernels: power_project_accumulate(a, a, V, out=) == "
+          f"powerpass_sweep(a, proj_stage(a, V), out=) bitwise: {same}", flush=True)
+    if not same:
+        raise AssertionError("horst: power_project_accumulate is not its staged pair bitwise")
+    for name, (kern, plain, timed, lib, K, flops, nbytes, shape) in \
+            horst_kernel_cases(a, V).items():
+        err = check(f"horst {name}", kern, plain, K)
+        print(tile_line(f"horst {name}", *shape), flush=True)
+        t = {"ms": time_ms(timed, 3), "plain_ms": time_plain(plain),
+             "library_ms": time_ms(lib, 3)}
+        b = bound(flops, nbytes)
+        print(f"[smoke] horst {name} at {(n, d)} → {k}: kernel {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}); {flops / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s; max_abs_err {err:.3e}", flush=True)
+
+
+class TimedSource:
+    """A ``source_factory`` over the first ``chunks`` chunks of ``data``:
+    each call starts one data pass, and records the wall since the last
+    call after a device sync (a pass and the k × k algebra after it)."""
+
+    def __init__(self, data, chunks: int):
+        self.data, self.chunks = data, chunks
+        self.marks: list = []
+
+    def _mark(self) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+    def __call__(self):
+        self._mark()
+        return (self.data.get_chunk(i) for i in range(self.chunks))
+
+    def pass_seconds(self) -> list:
+        self._mark()
+        return [round(t1 - t0, 3) for t0, t1 in zip(self.marks, self.marks[1:])]
+
+
+def horst_launches(passes: dict, n: int, da: int, db: int, k: int, chunks: int) -> dict:
+    """The entry-point launches of a kernels-engine streaming Horst run:
+    per chunk, a Gram pass is ``power_project_accumulate(x, x, V)`` on
+    the schedule the rule resolves (staged: one ``proj_stage`` and one
+    ``powerpass_sweep``; recompute: one launch per ΔY bucket), a combined
+    pass one ``proj_stage`` and two ``powerpass_sweep``."""
+    from repro_torch.kernels import choose_powerpass_schedule, plan
+
+    want = {"proj_stage": passes["cross"] * chunks,
+            "powerpass_sweep": 2 * passes["cross"] * chunks}
+    for kind, d in (("gram_a", da), ("gram_b", db)):
+        for i in range(chunks):  # the first chunk of a pass starts the accumulator
+            if choose_powerpass_schedule(n, d, d, k, accumulate=i > 0) == "staged":
+                want["proj_stage"] += passes[kind]
+                want["powerpass_sweep"] += passes[kind]
+            else:
+                want["power_project_accumulate"] = (want.get("power_project_accumulate", 0)
+                                                    + passes[kind] * len(plan.buckets(d, k)))
+    return {name: v for name, v in want.items() if v}
+
+
+def horst_run(label, source, da, db, cfg, n_rows, *, warm_a, **kw):
+    """One streaming Horst run with the launch counters zeroed just before
+    and read just after: its result, launches, pass seconds and peak;
+    checks ρ ∈ [0, 1], finite X, the pass count against the reference's
+    formula and, under the kernels engine, the launches against
+    :func:`horst_launches`."""
+    import torch
+
+    from repro_torch.core.horst import horst_cca_streaming, streaming_passes
+    from repro_torch.kernels import ops as kops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    source.marks.clear()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = horst_cca_streaming(source, da, db, cfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    secs = source.pass_seconds()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    passes = streaming_passes(cfg.iters, cfg.cg_iters, warm_a)
+    want = (horst_launches(passes, n_rows, da, db, cfg.k, source.chunks)
+            if kw.get("engine", "kernels") == "kernels" else {})
+    got = {"finite": all(bool(torch.isfinite(t).all()) for t in res[:3]),
+           "rho in [0, 1]": rho_ok(res.rho),
+           "passes = formula": int(res.objective_history[0]) == sum(passes.values())
+           == len(secs),
+           "launches = passes × chunks × ops table": launches == want}
+    print(f"[smoke] horst {label}: wall {wall:.3f} s, passes {int(res.objective_history[0])} "
+          f"({passes}) of {source.chunks} chunks, pass seconds {secs}, peak device memory "
+          f"{peak:.2f} GB, launches {launches}, sum rho {float(res.rho.double().sum()):.6f}; "
+          f"{got}", flush=True)
+    if not all(got.values()):
+        raise AssertionError(f"horst {label}: a check failed: {got}")
+    return res, launches
+
+
+def phase_horst(dev, fit: dict) -> dict:
+    """Phase 18: Horst+rcca at Europarl width (d = 2^19, k = 60 uncut):
+    streaming Horst over the first ``HORST_CHUNKS`` chunks of phase 7's
+    planted rows (the same seed and rank), from phase 7's kernels-engine
+    ``Xa``, ``Xb`` (warm: one iteration of 2 CG steps, kernels and torch
+    engines) and from a seeded Gaussian (cold: one iteration of 3 CG steps,
+    at least the warm run's passes).  λ is phase 7's, scaled to the rows
+    Horst sees (the same ν).  The engines agree within 1e-3 and the warm
+    Σρ is above the cold one (Table 2b's direction).  Returns the kernels
+    runs' launches summed."""
+    from repro_torch.configs.europarl_cca import config
+    from repro_torch.core.horst import HorstConfig
+    from repro_torch.launch import cca_fit
+
+    wl = config()
+    data = cca_fit.planted(wl, seed=SEED, n_chunks=N_CHUNKS, device=dev)
+    source = TimedSource(data, HORST_CHUNKS)
+    scale = HORST_CHUNKS / N_CHUNKS
+    lam = {"lam_a": fit["lam_a"] * scale, "lam_b": fit["lam_b"] * scale}
+    print(f"[smoke] horst: Europarl width, the first {HORST_CHUNKS} of phase 7's {N_CHUNKS} "
+          f"chunks of {wl.chunk} rows, k = {wl.rcca.k}, lam {lam}", flush=True)
+    n = wl.chunk
+    warm_cfg = HorstConfig(k=wl.rcca.k, iters=1, cg_iters=2)
+    warm = dict(init_Xa=fit["Xa"], init_Xb=fit["Xb"], **lam)
+    runs = {}
+    runs["warm"] = horst_run("warm (Horst+rcca), kernels engine", source, wl.da, wl.db,
+                             warm_cfg, n, warm_a=True, device=dev, **warm)
+    runs["cold"] = horst_run("cold (Gaussian), kernels engine", source, wl.da, wl.db,
+                             HorstConfig(k=wl.rcca.k, iters=1, cg_iters=3), n, warm_a=False,
+                             seed=SEED, device=dev, **lam)
+    runs["torch"] = horst_run("warm (Horst+rcca), torch engine", source, wl.da, wl.db,
+                              warm_cfg, n, warm_a=True, engine="torch", device=dev, **warm)
+    rho = {key: r.rho.double().cpu() for key, (r, _) in runs.items()}
+    gap = float((rho["warm"] - rho["torch"]).abs().max())
+    got = {"|rho_kernels - rho_torch| <= 1e-3": gap <= 1e-3,
+           "warm sum rho > cold sum rho": float(rho["warm"].sum()) > float(rho["cold"].sum()),
+           "cold passes >= warm passes": int(runs["cold"][0].objective_history[0])
+           >= int(runs["warm"][0].objective_history[0])}
+    print(f"[smoke] horst: max |rho_kernels - rho_torch| = {gap:.3e}; sum rho warm "
+          f"{float(rho['warm'].sum()):.6f}, cold {float(rho['cold'].sum()):.6f}, torch "
+          f"{float(rho['torch'].sum()):.6f}; rcca's (16 chunks) {fit['sum_rho']:.6f}; top-5 "
+          f"warm {[round(x, 6) for x in rho['warm'][:5].tolist()]}, cold "
+          f"{[round(x, 6) for x in rho['cold'][:5].tolist()]}; {got}", flush=True)
+    if not all(got.values()):
+        raise AssertionError(f"horst: a check failed: {got}")
+    total: dict = {}
+    for key in ("warm", "cold"):
+        for name, v in runs[key][1].items():
+            total[name] = total.get(name, 0) + v
+    return total
+
+
+def phase_horst_smoke(dev) -> dict:
+    """Phase 19, at the smoke width: dense ``horst_cca`` (Cholesky and CG;
+    its three Grams by ``matmul_tn``) and streaming Horst (its Gram passes
+    recompute: one ΔY bucket) on the card against the port's own CPU run
+    on the same numpy rows and start, ρ within 1e-4 and sign-aligned X
+    within 1e-3 relative (``tests/test_torch_horst.py``'s tolerances);
+    then ``examples/europarl_cca_torch.py`` at its defaults (4,096 slots,
+    kernels engine) must end in ``OK``.  Returns the Horst runs'
+    launches (the example's, its fit's among them, are printed)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.horst import (HorstConfig, horst_cca, horst_cca_streaming,
+                                        streaming_passes)
+    from repro_torch.data import planted_views
+    from repro_torch.kernels import ops as kops
+
+    A, B = (x.astype(np.float32) for x in planted_views(SEED, n=4096, da=256, db=192, rank=16))
+    k = 8
+    init = torch.randn((B.shape[1], k), generator=torch.Generator().manual_seed(SEED)).numpy()
+    lam = 0.01 * float(np.sum(A * A)) / A.shape[1], 0.01 * float(np.sum(B * B)) / B.shape[1]
+
+    def sign_rel(X, R):
+        X, R = X.double().cpu(), R.double().cpu()
+        X = X * torch.sign((X * R).sum(0, keepdim=True))
+        return float(torch.linalg.norm(X - R) / torch.linalg.norm(R))
+
+    def chunks():
+        return ((A[lo:lo + 512], B[lo:lo + 512]) for lo in range(0, A.shape[0], 512))
+
+    stream = HorstConfig(k=k, iters=3, cg_iters=3)
+    dense = {"matmul_tn": 3}  # AᵀA, BᵀB, AᵀB
+    runs = {  # label: (run on a device, the launches it must make on the card)
+        "dense chol": (lambda d: horst_cca(A, B, HorstConfig(k=k, iters=20, nu=0.01),
+                                           init_Xb=init, device=d), dense),
+        # 4 CG steps a solve: with 8 the f32 CG runs past its rounding floor here,
+        # and a 1e-7 relative change of the rows moves X by 5 % on the CPU alone
+        "dense cg": (lambda d: horst_cca(A, B, HorstConfig(k=k, iters=10, nu=0.01, solver="cg",
+                                                           cg_iters=4),
+                                         init_Xb=init, device=d), dense),
+        "streaming": (lambda d: horst_cca_streaming(chunks, A.shape[1], B.shape[1], stream,
+                                                    init_Xb=init, lam_a=lam[0], lam_b=lam[1],
+                                                    device=d),
+                      horst_launches(streaming_passes(stream.iters, stream.cg_iters, False),
+                                     512, A.shape[1], B.shape[1], k, A.shape[0] // 512)),
+    }
+    total: dict = {}
+    for label, (run, want) in runs.items():
+        kops.reset_launch_counts()
+        card = run(dev)
+        torch.cuda.synchronize()
+        launches = kops.launch_counts()
+        host = run("cpu")
+        errs = {"rho": float((card.rho.double().cpu() - host.rho.double()).abs().max()),
+                "Xa": sign_rel(card.Xa, host.Xa), "Xb": sign_rel(card.Xb, host.Xb)}
+        ok = (errs["rho"] <= 1e-4 and errs["Xa"] <= 1e-3 and errs["Xb"] <= 1e-3
+              and rho_ok(card.rho) and launches == want)
+        print(f"[smoke] horst smoke {label}: card vs CPU {errs} (limits 1e-4, 1e-3), launches "
+              f"{launches} (want {want}), sum rho {float(card.rho.double().sum()):.6f}: {ok}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"horst smoke {label}: the card's run is not the CPU's")
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+
+    path = Path(__file__).resolve().parent / "examples" / "europarl_cca_torch.py"
+    spec = importlib.util.spec_from_file_location("europarl_cca_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    kops.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = example.main(["--device", dev.type])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[smoke] europarl example | {line}", flush=True)
+    launches = kops.launch_counts()
+    print(f"[smoke] europarl example (defaults, {path.name}): wall {wall:.1f} s, launches "
+          f"{launches}, horst rho in [0, 1]: {rho_ok(out['horst_rho'])}", flush=True)
+    if lines[-1] != "OK" or not launches or not rho_ok(out["horst_rho"]):
+        raise AssertionError("examples/europarl_cca_torch.py did not end in OK on the card")
+    return total
 
 
 def dist_job(runs: dict, n_ranks: int, label: str, smoke: bool = False) -> dict:
@@ -1643,8 +1987,7 @@ def phase_omega_bf16(dev) -> dict:
             row_err = err
         del om16, again, cast, plain
     t = {"ms": time_ms(lambda: rand.omega_fill(seed, d, kt, dtype=bf16, device=dev), 10),
-         "plain_ms": time_ms(lambda: rand.omega_tile(seed, d, kt, device=dev).to(bf16),
-                             PLAIN_REPS),
+         "plain_ms": time_plain(lambda: rand.omega_tile(seed, d, kt, device=dev).to(bf16)),
          "library_ms": None}
     row = dict(max_abs_err=row_err, **bound(0, 2 * d * kt, OMEGA_INT_OPS * d * kt), **t)
     print(f"[smoke] omega_fill[bf16]: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -3330,7 +3673,9 @@ def main() -> int:
     rows.update(phase_recompute(dev, a, b))
     torch.cuda.empty_cache()
     rows["matmul_nn"] = phase_matmul_nn(dev, a)
-    lap("f32 kernels (3-6, 8)")
+    torch.cuda.empty_cache()
+    phase_horst_kernels(dev, a)
+    lap("f32 kernels (3-6, 8, 17)")
     a16 = a.to(torch.bfloat16)
     del a
     b16 = b.to(torch.bfloat16)
@@ -3345,8 +3690,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("bf16 kernels (10, 12)")
     launches = phase_smoke_fits(dev)
-    launches.update(phase_fit(dev))
+    fit_launches, fit = phase_fit(dev)
+    launches.update(fit_launches)
     lap("f32 stream fits (7)")
+    horst = phase_horst(dev, fit)
+    del fit
+    for name, v in phase_horst_smoke(dev).items():
+        horst[name] = horst.get(name, 0) + v
+    print(f"[smoke] horst launches (phases 18-19's kernels-engine Horst runs, the example's "
+          f"apart): {horst}", flush=True)
+    lap("horst (18-19)")
     launches.update(phase_fit_910(dev))
     lap("p = 910 fits (7)")
     launches.update(phase_stream_bf16(dev))

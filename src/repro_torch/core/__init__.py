@@ -1,7 +1,8 @@
-"""Core of the paper: RandomizedCCA and its exact oracle (port of
-``repro.core``)."""
+"""Core of the paper: RandomizedCCA, its exact oracle and the Horst
+baseline (port of ``repro.core``)."""
 
 from .exact import CCASolution, cca_objective, exact_cca, feasibility_errors
+from .horst import HorstConfig, HorstResult, horst_cca
 from .rcca import (
     RCCAConfig,
     RCCAResult,
@@ -17,6 +18,9 @@ __all__ = [
     "draw_omega",
     "exact_cca",
     "feasibility_errors",
+    "HorstConfig",
+    "HorstResult",
+    "horst_cca",
     "RCCAConfig",
     "RCCAResult",
     "randomized_cca",

@@ -1,5 +1,13 @@
-"""Synthetic corpora (port of ``repro.data``)."""
+"""Data substrate (port of ``repro.data``): feature hashing and
+synthetic paired-view corpora and token streams."""
 
-from .synthetic import DevicePlantedChunks, PlantedCCAData
+from .hashing import HashingFeaturizer
+from .synthetic import DevicePlantedChunks, PlantedCCAData, SyntheticTokenStream, planted_views
 
-__all__ = ["DevicePlantedChunks", "PlantedCCAData"]
+__all__ = [
+    "DevicePlantedChunks",
+    "HashingFeaturizer",
+    "PlantedCCAData",
+    "SyntheticTokenStream",
+    "planted_views",
+]

@@ -8,7 +8,10 @@ Port of ``repro/data/synthetic.py``:
 - :class:`DevicePlantedChunks` — the same model made on the device from a
   ``torch.Generator`` keyed on ``(seed, chunk)``, for runs at Europarl
   width where a host-made chunk pair (34 GB) would dominate.  Same
-  distribution, not the same bits.
+  distribution, not the same bits;
+- :class:`SyntheticTokenStream` and :func:`planted_views` — the
+  reference's numpy token batches and materialized planted views, bit
+  for bit.
 
 Both draw A = Z Wa + σ Ea/√da, B = Z Wb + σ Eb/√db with Z ~ N(0, I_r)
 scaled by s_i = (i+1)^{-decay}, so the canonical correlations decay
@@ -151,3 +154,32 @@ class DevicePlantedChunks:
         """Small-scale only: stack all chunks."""
         As, Bs = zip(*list(self))
         return torch.cat(As), torch.cat(Bs)
+
+
+@dataclasses.dataclass
+class SyntheticTokenStream:
+    """Deterministic (B, S + 1) int32 token batches."""
+
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+
+    def get_batch(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 7_919 + step)
+        return rng.integers(0, self.vocab, (self.batch, self.seq + 1), dtype=np.int32)
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.get_batch(step)
+            step += 1
+
+
+def planted_views(key_seed: int, n: int, da: int, db: int, rank: int = 8,
+                  noise: float = 0.5, decay: float = 0.7):
+    """Convenience: materialized planted views as numpy arrays (float64
+    under numpy 2's promotion, as the reference's; cast before use)."""
+    d = PlantedCCAData(n=n, da=da, db=db, rank=rank, decay=decay, noise=noise,
+                       seed=key_seed, chunk=max(256, n // 8))
+    return d.materialize()
