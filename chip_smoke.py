@@ -230,7 +230,28 @@ Phases, each of which fails the run by raising:
     the same rows and start (ρ within 1e-4, sign-aligned X within 1e-3
     relative), with their launches, then ``examples/europarl_cca_torch.py``
     at its defaults (4,096 slots: hashing, the streamed fit, Horst+rcca),
-    which must end in ``OK`` (``phase_horst_smoke``).
+    which must end in ``OK`` (``phase_horst_smoke``);
+20. zoo (last) — the model zoo's serving path and activation harvesting
+    (``phase_zoo``): (a) the four ported archs' smoke configs in f32, the
+    same weights on the CPU and the card, ``forward_hidden``, prefill and 4
+    decode steps within 1e-5 of the CPU (gemma3's 40-token prompt past its
+    window of 16), prefill + decode against teacher forcing on the card
+    within 5e-4; (b) granite-3-2b at full width (d = 2048, 40 layers, GQA
+    32/8, vocab 49,155): in f32 prefill + one decode step against the
+    teacher-forced logits within 4·√(L·K)·u, then ``repro_torch.launch.serve
+    --arch granite-3-2b --batch 8 --prompt-len 512 --gen 32`` in bf16 with
+    its prefill ms, decode ms per step, tokens/s and peak memory; (c)
+    granite-3-2b (da = 2048) against gemma3-1b (db = 1152), both bf16 at
+    full width, harvested over 8 token batches of 8 × 512 (8 chunks of
+    4,096 f32 rows), ``RCCAConfig(k=60, p=196, q=1, ν=0.01, center=True)``
+    on the kernels engine, the torch engine on the same Ω (|Δρ| ≤ 1e-3)
+    and the shuffled-alignment control (aligned Σρ above it by more than
+    0.5), launches against the ``ops`` table and schedules against the
+    rule, seconds per pass and model seconds per chunk, then each kernel
+    the fit launched at one chunk's shape against its plain version
+    (4·√K·u), bitwise repeatable (recompute ≡ staged), timed beside its
+    plain version, one PyTorch call and the bound (``zoo_harvest``); (d)
+    ``examples/activation_cca_torch.py`` at its defaults ends in ``OK``.
 
 Every fit resets the launch counters just before it and reads them just
 after, and every kernels-engine stream fit, f32 or bf16, prints the first
@@ -1670,6 +1691,329 @@ def phase_horst_smoke(dev) -> dict:
     if lines[-1] != "OK" or not launches or not rho_ok(out["horst_rho"]):
         raise AssertionError("examples/europarl_cca_torch.py did not end in OK on the card")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the model zoo's serving path and activation harvesting
+# ---------------------------------------------------------------------------
+
+ZOO_TOL = 1e-5  # card ≡ CPU at the smoke width: tests/test_torch_models.py's
+# phase 20(c): 8 token batches of 8 × 512 = 8 chunks of 4,096 rows, one merge group
+HARVEST_BATCHES, HARVEST_BATCH, HARVEST_SEQ = 8, 8, 512
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over the largest |want|, on the host in f64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def zoo_tokens(vocab: int, B: int, S: int, seed: int):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, vocab, (B, S), np.int32))
+
+
+def zoo_smoke(dev) -> None:
+    """Phase 20(a): each of the four archs' smoke configs in f32, the same
+    weights on the CPU and the card: ``forward_hidden``, prefill and 4
+    decode steps within ``ZOO_TOL`` of the CPU; on the card, prefill + one
+    decode step against teacher forcing within 5e-4
+    (``tests/test_models_smoke.py``).  gemma3's prompt of 40 tokens
+    passes its window of 16, so its local layers mask."""
+    from repro_torch.configs import get_config, model_archs
+    from repro_torch.models import build_model
+
+    for arch in model_archs():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        host = build_model(cfg, device="cpu", seed=SEED)
+        card = build_model(cfg, device=dev, seed=SEED + 1)
+        card.load_state_dict(host.state_dict())
+        S = 40 if cfg.attn.window else 24
+        tok = zoo_tokens(cfg.vocab, 2, S + 5, SEED + 20)
+        errs = {"hidden": rel_err(card.forward_hidden({"tokens": tok[:, :S]}),
+                                  host.forward_hidden({"tokens": tok[:, :S]}))}
+        hc, cc = host.init_cache(2, 64), card.init_cache(2, 64)
+        errs["prefill"] = rel_err(card.prefill(tok[:, :S], cc)[0], host.prefill(tok[:, :S], hc)[0])
+        errs["decode"] = max(rel_err(card.decode_step(tok[:, i:i + 1], cc)[0],
+                                     host.decode_step(tok[:, i:i + 1], hc)[0])
+                             for i in range(S, S + 4))
+        full = card.forward_train({"tokens": tok[:, :S + 1]})
+        cache = card.init_cache(2, 64)
+        card.prefill(tok[:, :S], cache)
+        teacher = float((card.decode_step(tok[:, S:S + 1], cache)[0][:, 0] - full[:, S])
+                        .abs().max())
+        ok = max(errs.values()) <= ZOO_TOL and teacher < 5e-4
+        print(f"[smoke] zoo smoke {arch} (S = {S}): card vs CPU max rel err {errs} "
+              f"(limit {ZOO_TOL}); prefill + decode vs teacher forcing on the card "
+              f"{teacher:.3e} (limit 5e-4): {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"zoo smoke {arch}: the card's model is not the CPU's")
+        del host, card
+
+
+def zoo_serve(dev) -> dict:
+    """Phase 20(b): granite-3-2b at full width.  In f32, prefill + one
+    decode step against the teacher-forced logits of the same tokens,
+    within 4·√(L·K)·u of the largest logit (K = d_ff, the widest
+    contraction; L layers of such rounding adding like a random walk);
+    then ``python -m repro_torch.launch.serve --arch granite-3-2b --batch
+    8 --prompt-len 512 --gen 32`` (its ``main``, in this process) in the
+    config's bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=SEED)
+    S = 64
+    tok = zoo_tokens(cfg.vocab, 2, S + 1, SEED + 21)
+    full = model.forward_train({"tokens": tok})[:, S]
+    cache = model.init_cache(2, S + 8)
+    model.prefill(tok[:, :S], cache)
+    step = model.decode_step(tok[:, S:S + 1], cache)[0][:, 0]
+    err, scale = float((step - full).abs().max()), float(full.abs().max())
+    tol = 4 * math.sqrt(cfg.n_layers * cfg.ffn.d_ff) * U
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[smoke] zoo granite-3-2b f32 full width (d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"GQA {cfg.attn.n_heads}/{cfg.attn.n_kv}, vocab {cfg.vocab}), prompt {S}: prefill + "
+          f"decode vs teacher forcing max abs err {err:.3e}, rel {err / scale:.3e} (limit "
+          f"{tol:.3e}); peak device memory {peak:.2f} GB", flush=True)
+    if not err <= tol * scale:
+        raise AssertionError("granite-3-2b f32: decode disagrees with teacher forcing")
+    del model, full, step, cache
+    torch.cuda.empty_cache()
+    rep = serve.main(["--arch", "granite-3-2b", "--batch", "8", "--prompt-len", "512",
+                      "--gen", "32"])
+    print(f"[smoke] zoo serve granite-3-2b bf16 batch 8, prompt 512, 32 tokens: prefill "
+          f"{rep['prefill_ms']:.1f} ms, decode {rep['decode_ms_per_step']:.3f} ms per step, "
+          f"{rep['tok_s']:.1f} tokens/s, peak device memory {rep['peak_gb']:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    return rep
+
+
+class HarvestSource:
+    """A ``source_factory`` harvesting (granite rows, gemma3 rows) from
+    the token batches, the second view's rows permuted per batch when
+    ``shuffle`` (the control): each call starts one data pass.  Records
+    each pass's wall (device sync at its start, as ``TimedSource``) and
+    each chunk's model seconds (a sync before and after the harvest)."""
+
+    def __init__(self, m1, m2, batches, shuffle: bool = False):
+        self.m1, self.m2, self.batches, self.shuffle = m1, m2, batches, shuffle
+        self.marks: list = []
+        self.model_s: list = []
+
+    def _pairs(self):
+        import torch
+
+        from repro_torch.core.harvest import activation_views, paired_activation_stream
+
+        if not self.shuffle:
+            yield from paired_activation_stream(self.m1, self.m2, iter(self.batches))
+            return
+        for i, batch in enumerate(self.batches):
+            va, vb = activation_views(self.m1, batch), activation_views(self.m2, batch)
+            g = torch.Generator(device=vb.device)
+            g.manual_seed(40 + i)
+            yield va, vb[torch.randperm(vb.shape[0], generator=g, device=vb.device)]
+
+    def __call__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+        def timed():
+            it = self._pairs()
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pair = next(it, None)
+                if pair is None:
+                    return
+                torch.cuda.synchronize()
+                self.model_s.append(time.perf_counter() - t0)
+                yield pair
+        return timed()
+
+    def pass_seconds(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        return [round(t1 - t0, 3) for t0, t1 in zip(self.marks, self.marks[1:])]
+
+
+def harvest_kernel_cases(a, b, Qa, Qb):
+    """Phase 20(c)'s kernels at one harvested chunk: a (n, da), b (n, db)
+    and Ω (Qa, Qb): per entry point (call returning a tuple, staged pair
+    or None, plain call, library call or None, the K of each output,
+    FLOPs, bytes).  The Gram's work counts its k̃(k̃+1)/2 distinct
+    entries."""
+    import torch
+
+    from repro_torch.kernels import matmul_tn, power_project_accumulate, projgram, ref
+
+    n, da = a.shape
+    db, kt = b.shape[1], Qa.shape[1]
+    pa, pb = ref.proj_stage_ref(a, Qa), ref.proj_stage_ref(b, Qb)
+    gram_flops, gram_words = n * kt * (kt + 1), kt * (kt + 1) // 2
+    return {
+        "power_project_accumulate": (
+            lambda: (power_project_accumulate(a, b, Qb),),
+            lambda: (power_project_accumulate(a, b, Qb, schedule="staged"),),
+            lambda: (ref.power_project_accumulate_ref(a, b, Qb),),
+            lambda: torch.linalg.multi_dot([a.T, b, Qb]), (db + n,),
+            2 * n * db * kt + 2 * n * da * kt, 4 * (n * da + n * db + db * kt + da * kt)),
+        "projgram": (lambda: projgram(a, Qa), lambda: projgram(a, Qa, schedule="staged"),
+                     lambda: ref.projgram_ref(a, Qa), None, (da, da + n),
+                     2 * n * da * kt + gram_flops, 4 * (n * da + da * kt + n * kt + gram_words)),
+        "matmul_tn": (lambda: (matmul_tn(pa, pb),), None, lambda: (ref.matmul_tn_ref(pa, pb),),
+                      lambda: pa.T @ pb, (n,), 2 * n * kt * kt, 4 * (2 * n * kt + kt * kt)),
+    }
+
+
+def zoo_harvest(dev) -> dict:
+    """Phase 20(c): views of granite-3-2b (da = 2048) against gemma3-1b (db
+    = 1152), both bf16 at full width, rows cast to f32 by
+    ``activation_views``, over ``HARVEST_BATCHES`` token batches of 8 × 512
+    (one merge group of 4,096-row chunks); ``RCCAConfig(k=60, p=196, q=1,
+    ν=0.01, center=True)`` (k̃ = 256) on the kernels engine, on the torch
+    engine from the same Ω (|Δρ| ≤ 1e-3), and the shuffled-alignment
+    control on the kernels engine (aligned Σρ above it by more than 0.5);
+    launches against the ``ops`` table, schedules, seconds per pass and
+    model seconds per chunk; then each kernel launched, at one chunk's
+    shape, against its plain version (4·√K·u), bitwise repeatable (a
+    recompute kernel bitwise its staged pair), timed beside its plain
+    version, one PyTorch call and the bound.  Returns the kernels-engine
+    fit's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rcca import RCCAConfig, draw_omega, randomized_cca_iterator
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c1, c2 = get_config("granite-3-2b"), get_config("gemma3-1b")
+    m1, m2 = build_model(c1, device=dev, seed=SEED), build_model(c2, device=dev, seed=SEED + 1)
+    # tokens from granite-3-2b's vocabulary (49,155), which gemma3-1b's contains
+    stream = SyntheticTokenStream(vocab=c1.vocab, batch=HARVEST_BATCH, seq=HARVEST_SEQ, seed=3)
+    batches = [{"tokens": torch.from_numpy(stream.get_batch(i)[:, :-1]).to(dev)}
+               for i in range(HARVEST_BATCHES)]
+    da, db = c1.d_model, c2.d_model
+    cfg = RCCAConfig(k=60, p=196, q=1, nu=0.01, center=True)
+    n = HARVEST_BATCH * HARVEST_SEQ
+    want, schedules = {}, []
+    for kind in ("power", "final"):
+        cost = kops.chunk_cost(kind, n, da, db, cfg.sketch)
+        schedules.append(cost["schedule"])
+        for e in cost["entries"]:
+            want[e["kernel"]] = want.get(e["kernel"], 0) + e["calls"] * HARVEST_BATCHES
+    fits = {}
+    for label, engine, shuffle in [("kernels", "kernels", False), ("torch", "torch", False),
+                                   ("shuffled", "kernels", True)]:
+        src = HarvestSource(m1, m2, batches, shuffle)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = randomized_cca_iterator(src, da, db, cfg, seed=SEED, engine=engine, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kops.launch_counts()
+        secs = src.pass_seconds()
+        fits[label] = (res, launches)
+        print(f"[smoke] zoo harvest {label} ({c1.name} {da} vs {c2.name} {db}, "
+              f"{HARVEST_BATCHES} chunks of {n} rows, k̃ {cfg.sketch}): wall {wall:.3f} s, pass "
+              f"seconds {secs}, model seconds per chunk {[round(s, 4) for s in src.model_s]}, "
+              f"schedules {res.diagnostics['schedules']}, "
+              f"launches {launches}, sum rho {float(res.rho.double().sum()):.6f}", flush=True)
+        if not rho_ok(res.rho):
+            raise AssertionError(f"zoo harvest {label}: rho outside [0, 1]")
+    (rk, lk), (rt, lt), (rs, ls) = fits["kernels"], fits["torch"], fits["shuffled"]
+    drho = float((rk.rho.double() - rt.rho.double()).abs().max())
+    gap = float(rk.rho.double().sum() - rs.rho.double().sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = {"launches = ops table": lk == want and ls == want, "torch engine launches none":
+           lt == {}, "schedules = the rule's": rk.diagnostics["schedules"] == schedules,
+           "|drho| kernels vs torch <= 1e-3": drho <= 1e-3, "aligned - shuffled > 0.5": gap > 0.5}
+    print(f"[smoke] zoo harvest: want launches {want} (the ops table × {HARVEST_BATCHES} "
+          f"chunks), schedules {schedules}; max |rho_kernels - rho_torch| {drho:.3e}; aligned sum rho - shuffled "
+          f"{gap:.6f}; top rho {[round(r, 4) for r in rk.rho[:5].tolist()]}; peak device "
+          f"memory {peak:.2f} GB; {got}", flush=True)
+    if not all(got.values()):
+        raise AssertionError(f"zoo harvest: a check failed: {got}")
+
+    from repro_torch.core.harvest import activation_views
+
+    a, b = activation_views(m1, batches[0]), activation_views(m2, batches[0])
+    del m1, m2, fits, rk, rt, rs
+    Qa, Qb = draw_omega(SEED, da, db, cfg, device=dev)
+    for name, (kern, staged, plain, lib, Ks, flops, nbytes) in \
+            harvest_kernel_cases(a, b, Qa, Qb).items():
+        if staged is None:
+            err = check(f"harvest {name}", lambda: kern()[0], lambda: plain()[0], Ks[0])
+        else:
+            err = check_fused(f"harvest {name}", kern, staged, plain, Ks)
+        t = {"ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 10),
+             "library_ms": None if lib is None else time_ms(lib, 10)}
+        bd = bound(flops, nbytes)
+        lib_txt = "none" if lib is None else f"{t['library_ms']:.4f} ms"
+        print(f"[smoke] harvest {name} at a {tuple(a.shape)}, b {tuple(b.shape)}, k̃ "
+              f"{cfg.sketch}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{lib_txt}, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; max_abs_err {err:.3e}; launches in the "
+              f"kernels-engine fit {lk.get(name, 0)}", flush=True)
+    del a, b, Qa, Qb, batches
+    torch.cuda.empty_cache()
+    return lk
+
+
+def zoo_example(dev) -> None:
+    """Phase 20(d): ``examples/activation_cca_torch.py`` at its defaults on
+    the card must end in ``OK``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.kernels import ops as kops
+
+    path = Path(__file__).resolve().parent / "examples" / "activation_cca_torch.py"
+    spec = importlib.util.spec_from_file_location("activation_cca_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    kops.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = example.main(["--device", dev.type])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"[smoke] activation example | {line}", flush=True)
+    launches = kops.launch_counts()
+    print(f"[smoke] activation example (defaults, {path.name}): wall {wall:.1f} s, launches "
+          f"{launches}, gap {out['gap']:.3f}", flush=True)
+    if lines[-1] != "OK" or not launches or not out["gap"] > 0.5:
+        raise AssertionError("examples/activation_cca_torch.py did not end in OK on the card")
+
+
+def phase_zoo(dev) -> dict:
+    """Phase 20: the model zoo's serving path and activation harvesting
+    (``zoo_smoke``, ``zoo_serve``, ``zoo_harvest``, ``zoo_example``);
+    returns the harvested kernels-engine fit's launches."""
+    zoo_smoke(dev)
+    zoo_serve(dev)
+    launches = zoo_harvest(dev)
+    zoo_example(dev)
+    return launches
 
 
 def dist_job(runs: dict, n_ranks: int, label: str, smoke: bool = False) -> dict:
@@ -3712,6 +4056,8 @@ def main() -> int:
     rows["project_rows"] = phase_store(dev, head)
     launches["project_rows"] = rows["project_rows"].pop("launches")
     lap("store, cluster, serve (14-16)")
+    phase_zoo(dev)
+    lap("zoo (20)")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches.get(name, 0), **row}
