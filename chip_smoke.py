@@ -18,13 +18,20 @@ Phases, each of which fails the run by raising:
    products of a bf16 kernel; counts the HGMMA and HMMA instructions of
    each kernel in ``cuobjdump -sass``: every kernel on the wgmma tile,
    staged or fused, must issue HGMMA, the old mma.sync tile kept as a
-   witness HMMA only, the f32 kernels and the generator neither; then the
-   occupancy API's blocks per SM of each f32 tile, staged and (128 × 128)
-   in the fused f32 kernel, must be the plan's (``plan.F32_TILES``), so
-   the printed waves and cooperative grids are the card's, and of the
-   wgmma tile and the fused bf16 kernels at their dynamic shared memory
-   ``plan.BF16_BLOCKS_PER_SM``, and of the serving form's segment tiles
-   ``plan.ROWS_TILES``' blocks per SM;
+   witness HMMA only, the f32 kernels and the generator neither;
+2a. analysis (right after the build) — the static-analysis gate in
+   process (``python -m repro_torch.analysis``'s ``main``): the
+   architecture lint over ``src/repro_torch`` clean, the kernel contracts
+   (RCCA101-106, RCCA108) of every registered form at the main path's
+   shapes and, run on the card, at small probes, with the occupancy API's
+   blocks per SM of each f32 tile, staged and (128 × 128) in the fused
+   f32 kernel, of the wgmma tile and the fused bf16 kernels at their
+   dynamic shared memory, and of the serving form's segment tiles equal
+   to the plan's (``plan.F32_TILES``, ``plan.BF16_BLOCKS_PER_SM``,
+   ``plan.ROWS_TILES``), so the printed waves and cooperative grids are
+   the card's; the protocol explorer clean over its 5 crash scenarios and
+   42 interleavings; it must print ``ANALYZE: OK``.  Its sanitizer half
+   runs inside phase 15;
 3. kernels — each of the four GEMM entry points against its plain
    PyTorch version on the card, at the main path's shapes (8192 rows,
    d = 2^19, k̃ = 2060, from the planted generator) and at two ragged
@@ -179,7 +186,16 @@ Phases, each of which fails the run by raising:
     child runs under ``RCCA_TRACE`` (its workers inherit it): no protocol
     violation, every process a role and coverage ≥ 0.95, the
     coordinator's publish, barrier and merge spans within 10 ms of its
-    diagnostics, the workers' ``kernel_cost`` calls their launches;
+    diagnostics, the workers' ``kernel_cost`` calls their launches.  The
+    smoke-width fits run under the determinism sanitizer (``RCCA_SANITIZE``
+    in their own thread's context, ``sanitize.override``; the Europarl
+    fits beside them are not sanitized): the Sharded, the combine-1
+    cluster and both Hybrid fits' traces equal the Local fit's record for
+    record (the site aside), the combine-2 fit's at every ``pass_end``
+    and its workers' group fingerprints the Local fit's; then one more
+    smoke fit of the same chunks with one bit of chunk 5 flipped, whose
+    first divergence from the Local trace must be pass 0's merge group 2
+    (``sanitize_smoke``);
 16. serve (inside phases 14 and 15, on their store) — the incremental
     fit and the serving tier: at the smoke width, in a child process
     beside phase 15's cluster child, ``cca_serve --smoke`` under both
@@ -2996,20 +3012,26 @@ def sharded_smoke(sreader, scfg, local, local_launches) -> None:
     """The streaming Sharded topology at the smoke width (phase 14's smoke
     store: 8 chunks of 512, merge groups of 2, four groups): ``exec.fit``
     over two slots on the card (``SHARDED_SLOTS``: two streams), counters
-    zeroed just before and read just after: bitwise the Local fit, the
-    same launches; each batch's slot device seconds printed."""
+    zeroed just before and read just after, sanitized: bitwise the Local
+    fit, the same launches, its sanitizer trace the Local fit's record for
+    record (the site aside); each batch's slot device seconds printed."""
+    from repro_torch.analysis import sanitize
     from repro_torch.exec import Sharded, fit
     from repro_torch.kernels import ops as kops
 
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = fit(sreader, scfg, SEED, topology=Sharded(devices=SHARDED_SLOTS), merge_group=2,
-              device="cuda")
+    with sanitize.override(True):
+        res = fit(sreader, scfg, SEED, topology=Sharded(devices=SHARDED_SLOTS), merge_group=2,
+                  device="cuda")
     wall = time.perf_counter() - t0
     launches = kops.launch_counts()
     topo = res.diagnostics["topology"]
     checks = {"≡ Local": same_fit(res, local), "launches ≡ Local": launches == local_launches,
-              "slots": topo["slots"] == list(SHARDED_SLOTS)}
+              "slots": topo["slots"] == list(SHARDED_SLOTS),
+              "sanitizer trace ≡ Local": sanitize.first_divergence(
+                  local.diagnostics["sanitize"], res.diagnostics["sanitize"],
+                  ignore=("site",)) is None}
     print(f"[smoke] sharded smoke: exec.fit, Sharded(devices={SHARDED_SLOTS}): wall "
           f"{wall:.3f} s, passes {[p['seconds'] for p in topo['passes']]} s, slot device s per "
           f"batch {[p['slot_device_s'] for p in topo['passes']]}, schedules "
@@ -3061,6 +3083,67 @@ def sharded_europarl(reader, wl, want_digest, want_launches) -> None:
     torch.cuda.empty_cache()
 
 
+FLIP_CHUNK = 5  # the smoke store's chunk whose bit the sanitizer must find: merge group 2
+
+
+def sanitize_smoke(sreader, scfg, local, fits: dict) -> None:
+    """Phase 15's sanitizer checks at the smoke width (merge groups of 2:
+    four a pass).  ``fits`` maps each cluster or Hybrid fit's label to
+    (its result, its combine span): at span 1 its trace must be the Local
+    fit's record for record, the site aside (the coordinator's merge
+    observes each partial as it enters the tree); at span 2 the Local
+    trace's ``pass_end`` records, and its workers' group fingerprints the
+    Local fit's groups.  Then the Local fit's chunks once more through the
+    pass engine, sanitized, with one bit of chunk ``FLIP_CHUNK`` flipped:
+    the first divergence from the Local trace must be pass 0's merge group
+    ``FLIP_CHUNK // 2``."""
+    import torch
+
+    from repro_torch.analysis import sanitize
+    from repro_torch.exec import PassEngine
+
+    want = local.diagnostics["sanitize"]
+    checks = {"Local trace: 4 groups and pass_end a pass": len(want) == 2 * 5}
+    for label, (res, combine) in fits.items():
+        got = res.diagnostics["sanitize"]
+        if combine == 1:
+            checks[f"{label}: trace ≡ Local"] = sanitize.first_divergence(
+                want, got, ignore=("site",)) is None
+            continue
+        ends = [[r for r in t if r["label"] == "pass_end"] for t in (want, got)]
+        checks[f"{label}: pass_end ≡ Local"] = sanitize.first_divergence(
+            *ends, ignore=("site",)) is None
+        groups = {(r["pass_idx"], r["label"]): r["digest"]
+                  for p in res.diagnostics["cluster"]["passes"] for w in p["workers"]
+                  for r in w.get("sanitize", [])}
+        checks[f"{label}: worker groups ≡ Local"] = groups == {
+            (r["pass_idx"], r["label"]): r["digest"] for r in want
+            if r["label"].startswith("group:")}
+
+    def flipped(c: int):
+        a, b = sreader.get_chunk(c)
+        if c == FLIP_CHUNK:
+            a = a.clone()
+            a.view(torch.int32)[0, 0] ^= 1 << 20  # one mantissa bit of one element
+        return a, b
+
+    with sanitize.override(True):
+        res = PassEngine(scfg, engine="kernels", merge_group=2, device="cuda").run_stream(
+            lambda: (flipped(c) for c in range(sreader.n_chunks)), sreader.da, sreader.db,
+            seed=SEED, n_chunks=sreader.n_chunks)
+    div = sanitize.first_divergence(want, res.diagnostics["sanitize"])
+    at = None if div is None else (div["a"]["pass_idx"], div["a"]["label"], div["reason"])
+    checks[f"bit of chunk {FLIP_CHUNK} flipped: first divergence at pass 0, group "
+           f"{FLIP_CHUNK // 2}"] = at == (0, f"group:{FLIP_CHUNK // 2}", "digest")
+    print(f"[smoke] analysis: sanitizer at the smoke width: Local trace {len(want)} records "
+          f"{[(r['pass_idx'], r['label'], r['digest'][:12]) for r in want]}; the flipped fit's "
+          f"first divergence {at} (record {None if div is None else div['index']}); "
+          f"{checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("analysis: a sanitizer trace differs from the Local fit's, or the "
+                             "flipped bit was not found at its merge group")
+
+
 def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=None,
                   beside_child=None):
     """The Cluster topology (``repro_torch.cluster``) on the card.
@@ -3091,6 +3174,7 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
     once the child is done; ``after_local``'s result is returned."""
     import torch
 
+    from repro_torch.analysis import sanitize
     from repro_torch.cluster.worker import KILL_ENV
     from repro_torch.configs.europarl_cca import smoke_config
     from repro_torch.exec import Cluster, Hybrid, fit
@@ -3105,16 +3189,18 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
         sreader = ViewStoreReader(str(root / "smoke"))
         scfg = smoke_config().rcca
         kops.reset_launch_counts()
-        local = fit(sreader, scfg, SEED, merge_group=2, device="cuda")
+        with sanitize.override(True):  # this thread's fits only
+            local = fit(sreader, scfg, SEED, merge_group=2, device="cuda")
         local_launches = kops.launch_counts()
         sharded_smoke(sreader, scfg, local, local_launches)
 
         def smoke_cluster(i, combine, env, topo):
             t0 = time.perf_counter()
-            res = fit(sreader, scfg, SEED, topology=topo, merge_group=2,
-                      cluster_dir=str(root / f"cluster_smoke_{i}"),
-                      combine_groups=combine, env_overrides=env, device="cuda",
-                      worker_timeout=300)
+            with sanitize.override(True):  # a thread of its own: its own trace
+                res = fit(sreader, scfg, SEED, topology=topo, merge_group=2,
+                          cluster_dir=str(root / f"cluster_smoke_{i}"),
+                          combine_groups=combine, env_overrides=env, device="cuda",
+                          worker_timeout=300)
             return res, time.perf_counter() - t0
 
         # (combine, fault injection, topology): two workers; two Hybrid workers
@@ -3171,6 +3257,8 @@ def phase_cluster(dev, root: Path, reader, wl, beside_local=None, after_local=No
         if not all(checks.values()):
             raise AssertionError("cluster smoke: a cluster or hybrid fit is not bitwise the "
                                  "Local fit, or its launches or devices are wrong")
+        sanitize_smoke(sreader, scfg, local, {label: (res, cases[label][0])
+                                              for label, (res, _) in smoke_out.items()})
 
         # -- Europarl width --------------------------------------------------
         want_digest = (digest(loc.result.rho), digest(loc.result.Xa))
@@ -3850,44 +3938,22 @@ def ring_spills() -> None:
         raise AssertionError(f"ptxas reported {len(fused)} fused kernels, not 4 f32 + 8 bf16")
 
 
-def tile_occupancy() -> None:
-    """Each f32 tile's blocks per SM on this card (the occupancy API) must be
-    the plan's, staged and in the fused f32 kernel on ``plan.FUSED_F32_TILE``
-    (whose cooperative grid is sized from it), or the waves the rule models
-    are not the card's; so
-    must the bf16 wgmma tile's, staged and fused, at its dynamic shared
-    memory, and each serving segment tile's (``plan.ROWS_TILES``)."""
-    from repro_torch.kernels import build, plan
+def phase_analysis() -> None:
+    """The static-analysis gate on the card, in this process: the
+    architecture lint, the kernel contracts with the occupancy API's blocks
+    per SM (``kernel_check.check_occupancy``: each tile's must be the
+    plan's), and the protocol explorer; raises unless it prints
+    ``ANALYZE: OK``.  The contracts' small probes launch kernels, so the
+    launch counters are zeroed after it."""
+    from repro_torch.analysis.__main__ import main as analyze
+    from repro_torch.kernels import ops as kops
 
-    for tile, (bm, bn, threads, per_sm) in enumerate(plan.F32_TILES):
-        got = [build.blocks_per_sm(tn, tile) for tn in (False, True)]
-        print(f"[smoke] f32 tile {tile} ({bm}×{bn}, {threads} threads): blocks per SM NN/TN "
-              f"{got}, plan {per_sm}; {plan.ring_smem(tile)} B of shared memory asked",
-              flush=True)
-        if got != [per_sm, per_sm]:
-            raise AssertionError(f"f32 tile {tile}: {got} blocks per SM, the plan has {per_sm}")
-        if tile == plan.FUSED_F32_TILE:
-            fused = build.fused_f32_blocks_per_sm()
-            print(f"[smoke] fused f32 kernel (tile {tile}): blocks per SM {fused}, plan "
-                  f"{per_sm}", flush=True)
-            if fused != per_sm:
-                raise AssertionError(f"fused f32 kernel: {fused} blocks per SM, the plan has "
-                                     f"{per_sm}")
-    for tile, (bm, bn, threads, per_sm) in enumerate(plan.ROWS_TILES):
-        got = build.rows_blocks_per_sm(tile)
-        print(f"[smoke] serving segment tile {tile} ({bm}×{bn}, {threads} threads, "
-              f"{plan.rows_smem(tile)} B of shared memory): blocks per SM {got}, plan {per_sm}",
-              flush=True)
-        if got != per_sm:
-            raise AssertionError(f"serving tile {tile}: {got} blocks per SM, the plan has "
-                                 f"{per_sm}")
-    got = build.bf16_blocks_per_sm()
-    print(f"[smoke] bf16 wgmma tile (128×128, {plan.BF16_THREADS} threads, "
-          f"{plan.SMEM_BYTES_BF16} B of dynamic shared memory): blocks per SM {got}, plan "
-          f"{plan.BF16_BLOCKS_PER_SM}", flush=True)
-    if set(got.values()) != {plan.BF16_BLOCKS_PER_SM}:
-        raise AssertionError(f"bf16 tile: {got} blocks per SM, the plan has "
-                             f"{plan.BF16_BLOCKS_PER_SM}")
+    t0 = time.perf_counter()
+    rc = analyze([])
+    kops.reset_launch_counts()
+    print(f"[smoke] analysis: the gate took {time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        raise AssertionError("analysis: the static-analysis gate failed (ANALYZE: FAIL)")
 
 
 def tile_line(name: str, M: int, N: int) -> str:
@@ -3990,7 +4056,7 @@ def main() -> int:
               f"{entry['log']}", flush=True)
     ring_spills()
     sass_hmma()
-    tile_occupancy()
+    phase_analysis()
     t0 = time.perf_counter()
     head.exception()  # the card and the host to the timed phases alone
     print(f"[smoke] waited {time.perf_counter() - t0:.2f} s for phase 14's ingest", flush=True)

@@ -34,8 +34,16 @@ whose seconds are the pass diagnostics' ``publish_s``, ``barrier_s`` and
 ``merge_s`` on one clock (``obs.monotonic``); the ``heartbeat`` (about
 once a second at the barrier), ``redispatch`` and ``workers`` counters;
 and a ``merge`` protocol event per partial merged.  The workers inherit
-the variable.  The reference's determinism sanitizer is not ported
-(ROADMAP Queue 1 item 5).
+the variable.
+
+Under ``RCCA_SANITIZE=1`` (or :func:`repro_torch.analysis.sanitize.override`
+in the coordinator's context) the fit opens a fresh sanitizer trace, the
+streamed merge fingerprints each partial as it enters the tree
+(``group:g``, or ``span:gxN`` for a combined span; site
+``coordinator_merge``) and each pass's merged result (``pass_end``), and
+the trace lands in ``diagnostics["sanitize"]`` and in
+``$RCCA_SANITIZE_OUT``.  The workers get the variable in their
+environment and report their own groups' fingerprints.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..analysis.protocol import trace_event
 from ..core.rcca import (DEFAULT_ENGINE, RCCAConfig, RCCAResult, algo_meta, finalize_result,
                          init_Q, omega_seeds, power_update_Q, resolve_engine, resolve_omega,
@@ -183,6 +192,8 @@ class ClusterCoordinator:
                                         if env.get("PYTHONPATH") else "")
         if self.device.type == "cuda":  # workers share the card: give freed pages back
             env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        if sanitize.enabled():  # the coordinator's context may turn it on, not the environment
+            env[sanitize.ENV] = "1"
         if extra_env:
             env.update(extra_env)
         with open(pt.log_path(self.cluster_dir, shard, pass_idx), "ab") as log:
@@ -293,6 +304,7 @@ class ClusterCoordinator:
         """The streamed tree: each partial read from disk and pushed in
         group order, its binding checked again → merged stats (host)."""
         r = self.reader
+        sanitize.set_context(pass_idx=int(pass_idx), kind=kind, site="coordinator_merge")
         acc = SegmentedAccumulator(stats_init_fn(kind, r.da, r.db, self.cfg.sketch, "cpu"),
                                    r.n_chunks, self.merge_group)
         try:
@@ -313,7 +325,9 @@ class ClusterCoordinator:
                 acc.push_group_span(g, stats, span)
                 del stats, loaded
                 g += span
-            return acc.result()
+            merged = acc.result()
+            sanitize.observe("pass_end", merged)
+            return merged
         finally:
             acc.close()
 
@@ -415,7 +429,7 @@ class ClusterCoordinator:
         store fit's."""
         # the fit's identity binds partials to this fit across respawns; it
         # never reaches the arithmetic or the merge order
-        fit_id = uuid.uuid4().hex
+        fit_id = uuid.uuid4().hex  # rcca: noqa[RCCA004]
         prev = obs.set_context(fit_id=fit_id, role="coordinator")
         try:
             with obs.span("fit", site="coordinator", engine=self.engine,
@@ -426,6 +440,7 @@ class ClusterCoordinator:
 
     def _fit(self, fit_id: str, seed, Qa, Qb) -> RCCAResult:
         r, cfg = self.reader, self.cfg
+        sanitize.reset()
         if self.device.type == "cuda" and self.engine == "kernels":
             build.build()  # the workers load what the coordinator built
         seeded = self.omega == "seeded"
@@ -476,4 +491,7 @@ class ClusterCoordinator:
             "combine_groups": self.combine_groups, "omega": self.omega, "fit_id": fit_id,
             "device": str(self.device), "passes": passes,
         }
+        if sanitize.enabled():
+            res.diagnostics["sanitize"] = sanitize.snapshot()
+            sanitize.dump()
         return res

@@ -60,13 +60,16 @@ Under ``RCCA_TRACE`` (inherited from the coordinator) the worker's
 records carry its role ``worker<shard>``: a ``worker_pass`` span around
 its fold, the fold's ``io_wait`` and ``chunk`` spans with their cost,
 a ``publish`` span per partial, the ``kernel_cost`` and ``io``
-counters, and the partial store's protocol events.
+counters, and the partial store's protocol events.  Under
+``RCCA_SANITIZE=1`` (inherited the same way) it fingerprints each merge
+group's sum as it leaves the worker (``group:g``, site ``worker``).
 
 The CLI prints one line ``[worker] report {json}`` at the end: the fit
 id, shard, pass, device, schedule, groups folded and published, chunks,
 bytes of partials and cursors, seconds, IO, kernel launches, the peak
-device memory and the largest host RSS seen at a chunk or publication;
-the coordinator reads it from the log.
+device memory and the largest host RSS seen at a chunk or publication,
+and the sanitizer's trace when it is on; the coordinator reads it from
+the log.
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..ckpt import CheckpointManager
 from ..obs.cost import chunk_cost_fn
 from ..core.rcca import (RCCAConfig, seeded_update_fn, stats_init_fn, stats_like,
@@ -178,6 +182,8 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
 
     kind, engine = meta["kind"], meta["engine"]
     obs.set_context(fit_id=meta.get("fit_id"), role=f"worker{shard:03d}", shard=shard)
+    sanitize.reset()
+    sanitize.set_context(pass_idx=int(pass_idx), kind=kind, site="worker")
     cfg = _config(meta["algo"])
     kt, G, n_chunks = cfg.sketch, int(meta["merge_group"]), reader.n_chunks
     n_groups = -(-n_chunks // G)
@@ -235,6 +241,8 @@ def run_worker(store: str, cluster_dir: str, shard: int, n_shards: int, pass_idx
     combiner = SpanCombiner(combine, publish_span)
 
     def publish(g: int, stats) -> None:
+        if sanitize.enabled():  # the group's sum as it leaves the worker
+            sanitize.observe(f"group:{g}", stats)
         if combine > 1:
             combiner.emit(g, stats)
         else:
@@ -444,6 +452,8 @@ def main(argv=None) -> int:
     cards = {torch.device(d) for d in report.get("slots", [report.get("device", args.device)])}
     report["peak_gb"] = (max(torch.cuda.max_memory_allocated(d) for d in cards) / 1e9
                          if torch.device(args.device).type == "cuda" else None)
+    if sanitize.enabled():
+        report["sanitize"] = sanitize.snapshot()
     print(f"[worker {args.shard}] pass {args.pass_idx}: published {n} partial(s)", flush=True)
     print(REPORT + json.dumps(report), flush=True)
     return 0

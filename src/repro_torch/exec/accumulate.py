@@ -32,12 +32,14 @@ spans; :func:`reduce_group_partials` reduces an in-memory set.
 
 from __future__ import annotations
 
-import time
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, List, Mapping, Optional
 
 import torch
+
+from .. import obs
+from ..analysis import sanitize
 
 #: Chunks per merge group — the granularity of the canonical reduction.
 MERGE_GROUP_CHUNKS = 8
@@ -220,7 +222,7 @@ class PairwiseStack:
         _check_span(count)
         if s[0].device.type == "cuda":
             torch.cuda.synchronize(s[0].device)
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         self.expect(s)
         self._wait()
         self._ensure_spare()
@@ -233,7 +235,7 @@ class PairwiseStack:
             self._pending = self._worker.submit(self._merge, True)
         else:
             self._merge(False)
-        self.host_seconds += time.perf_counter() - t0
+        self.host_seconds += obs.monotonic() - t0
 
     def result(self) -> Optional[Stats]:
         """Fold the leftover unequal-weight entries newest → oldest on the
@@ -260,6 +262,12 @@ class SegmentedAccumulator:
     A closed group's successor is made only when the next chunk arrives,
     not at the close: at Europarl width one zero PowerStats is 8.6 GB,
     and after the last group none is needed.
+
+    Under ``RCCA_SANITIZE=1`` every group sum that enters the tree is
+    fingerprinted (:func:`repro_torch.analysis.sanitize.observe`):
+    ``group:g`` as it closes or arrives, ``span:gxN`` for a combined span
+    of N groups.  A sink-mode accumulator hands its groups on unobserved
+    (the sink's owner observes what it publishes).
     """
 
     def __init__(self, init_fn: Callable[[], Stats], n_chunks: Optional[int],
@@ -321,9 +329,12 @@ class SegmentedAccumulator:
             self._push_current(more=False)
 
     def _push_current(self, more: bool) -> None:
+        g = self._last_chunk // self.group_chunks
         if self.sink is not None:
-            self.sink(self._last_chunk // self.group_chunks, self.current)
+            self.sink(g, self.current)
         else:
+            if sanitize.enabled():  # a merge group enters the tree: the contract's unit
+                sanitize.observe(f"group:{g}", self.current)
             self._tree.push(self.current, more)
         self.current = None
         self.groups_done += 1
@@ -367,6 +378,9 @@ class SegmentedAccumulator:
             raise ValueError(f"span [{group_idx}, {group_idx + span}) overruns the "
                              f"{self.n_groups}-group pass")
         more = self.n_chunks is None or group_idx + span < self.n_groups
+        if sanitize.enabled():
+            sanitize.observe(f"group:{group_idx}" if span == 1 else f"span:{group_idx}x{span}",
+                             stats)
         self._tree.push_span(stats, span, more)
         self.groups_done += span
 

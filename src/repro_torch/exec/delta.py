@@ -67,7 +67,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -423,9 +422,9 @@ def delta_refit(state: FitState, store, *, mode: str = "exact", topology=Local()
             # pass 0 over the delta only — exact for both modes: Ω comes from
             # the seed, not the data
             Qa0, Qb0 = slots(cap0)
-            t0 = time.perf_counter()
+            t0 = obs.monotonic()
             acc0 = restore(cap0)
-            restore_s = time.perf_counter() - t0
+            restore_s = obs.monotonic() - t0
             fold(0, cap0.kind, acc0, Qa0, Qb0, start=old_nc)
             new_cap0 = capture(cap0.kind, acc0, Qa0, Qb0)
 

@@ -30,6 +30,7 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..obs.cost import chunk_cost_fn, merge_kernel_costs
 from .accumulate import MERGE_GROUP_CHUNKS, SegmentedAccumulator
@@ -403,7 +404,10 @@ class PassEngine:
         the pass consumed.  The result's ``diagnostics["schedules"]``
         holds the schedule each pass's kernels resolved (``"staged"``,
         ``"recompute"``, ``"a/b"`` when the views differ, None under the
-        torch engine).
+        torch engine).  Under ``RCCA_SANITIZE=1`` the fit opens a fresh
+        sanitizer trace, observes each merge group (site ``stream``) and
+        each pass's merged result (``pass_end``), and leaves the trace in
+        ``diagnostics["sanitize"]`` (and in ``$RCCA_SANITIZE_OUT``).
         """
         with obs.span("fit", site="stream", engine=self.engine):
             return self._run_stream(source_factory, da, db, Qa, Qb, seed=seed,
@@ -416,6 +420,7 @@ class PassEngine:
         from ..core.rcca import finalize_result, power_update_Q, stats_init_fn
 
         cfg = self.cfg
+        sanitize.reset()
         start_pass, start_chunk, acc_state = 0, 0, None
         if resume_state is None:
             Qa, Qb = self._init_payload(Qa, Qb, seed, da, db)
@@ -442,6 +447,8 @@ class PassEngine:
                 self.fold_pass(source_factory, pass_idx, kind, acc, Qa, Qb,
                                start_chunk=start_chunk, on_chunk=cb, schedules=schedules)
                 start_chunk = 0
+                if sanitize.enabled():
+                    sanitize.observe("pass_end", acc.result())
                 if on_pass_complete is not None:
                     on_pass_complete(pass_idx, kind, acc, Qa, Qb)
                 if kind == "power":
@@ -451,6 +458,9 @@ class PassEngine:
         Qa, Qb = self.boundary_Q(Qa, Qb, pass_idx, da, db)  # the q = 0 finalize
         res = finalize_result(acc.result(), Qa, Qb, cfg, da, db)
         res.diagnostics["schedules"] = schedules
+        if sanitize.enabled():
+            res.diagnostics["sanitize"] = sanitize.snapshot()
+            sanitize.dump()
         return res
 
     def fold_pass(self, source_factory, pass_idx: int, kind: str, acc, Qa, Qb, *,
@@ -468,6 +478,7 @@ class PassEngine:
         fn = seeded_update_fn(kind, kt) if seeded else update_fn(kind, self.engine)
         if schedules is not None:
             fn = self._recording(fn, kind, kt, seeded, schedules)
+        sanitize.set_context(pass_idx=int(pass_idx), kind=kind, site="stream")
         source, offset = open_source(source_factory, start_chunk)
         return run_fold(self._indexed_on_device(source, offset, start_chunk), fn, acc, Qa, Qb,
                         on_chunk=on_chunk, device=self.device,
@@ -528,6 +539,7 @@ class PassEngine:
         from ..store.passes import SlotSet
 
         cfg = self.cfg
+        sanitize.reset()
         da, db, nc = access.da, access.db, access.n_chunks
         n_groups = -(-nc // self.merge_group)
         slots = SlotSet(access, cfg, self.slots, prefetch=prefetch, share=share)
@@ -543,6 +555,8 @@ class PassEngine:
                     device_s = self.fold_groups(access, slots, pass_idx, kind, acc, Qa, Qb,
                                                 range(n_groups), n_chunks=nc,
                                                 schedules=schedules)
+                    if sanitize.enabled():
+                        sanitize.observe("pass_end", acc.result())
                     if on_pass_complete is not None:
                         on_pass_complete(pass_idx, kind, acc, Qa, Qb)
                     if kind == "power":
@@ -556,6 +570,9 @@ class PassEngine:
         finally:
             slots.close()
         res.diagnostics["schedules"] = schedules
+        if sanitize.enabled():
+            res.diagnostics["sanitize"] = sanitize.snapshot()
+            sanitize.dump()
         res.diagnostics["topology"] = {
             "name": "sharded", "slots": [str(d) for d in self.slots], "n_groups": n_groups,
             "merge_group": self.merge_group, "residency": {str(k): v for k, v in
@@ -577,6 +594,7 @@ class PassEngine:
         fn = seeded_update_fn(kind, kt) if seeded else update_fn(kind, self.engine)
         if schedules is not None:
             fn = self._recording(fn, kind, kt, seeded, schedules)
+        sanitize.set_context(pass_idx=int(pass_idx), kind=kind, site="mesh")
         acc.expect(stats_like(kind, access.da, access.db, kt), self.device)
         return fold_groups_on_mesh(
             access, groups, fn, lambda dev: stats_init_fn(kind, access.da, access.db, kt, dev),

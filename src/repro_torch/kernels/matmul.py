@@ -99,6 +99,20 @@ FORMS = {
     "omega_fill": {(f32,): "omega_fill_f32", (bf16,): "omega_fill_bf16"},
     "project_rows": {(f32, f32): "gemm_rows_f32"},
 }
+#: The CUDA launches of a C function of :data:`FORMS` that issues more than
+#: one, by their launch plans' kernel names (:mod:`.plan`): a seeded
+#: function makes Ω slab by slab and contracts each slab, the last one in
+#: its fused launch where it has one; the serving product runs a segment
+#: and a tree launch a slice of rows.  Any other C function's plan launches
+#: the function itself.
+PARTS = {
+    "proj_stage_seeded_f32": ("omega_fill_f32", "gemm_nn_f32"),
+    "proj_stage_seeded_bf16": ("omega_fill_bf16", "gemm_nn_bf16"),
+    "recompute_seeded_f32": ("omega_fill_f32", "gemm_nn_f32", "recompute_f32"),
+    "projgram_seeded_bf16": ("omega_fill_bf16", "gemm_nn_bf16", "projgram_bf16"),
+    "power_recompute_seeded_bf16": ("omega_fill_bf16", "gemm_nn_bf16", "power_recompute_bf16"),
+    "gemm_rows_f32": ("gemm_rows_segment", "gemm_rows_tree"),
+}
 _SHORT = {f32: "f32", bf16: "bf16"}
 #: The C functions that run the f32 ring tile (``csrc/gemm_ring.cuh``) for
 #: their first product (the fused ones: phase 1): each takes the tile

@@ -112,7 +112,16 @@ SCHEDULES = ("recompute", "staged")
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """One CUDA launch."""
+    """One CUDA launch.
+
+    Besides its cost, a plan states what its grid covers, for the
+    contract checker (:mod:`repro_torch.analysis.kernel_check`): ``out``,
+    the output's extent along each grid axis, and ``tile``, one block's
+    share of it (a ``persistent`` grid has one axis and strides over the
+    (rows, columns) tiles of ``out``); ``ins``, each input operand's
+    extent along those axes (None where the operand is not tiled on one);
+    the inputs' and the output's dtypes; and ``seeds``, the uint32 words
+    of Ω's seed the launch takes (its only randomness)."""
 
     kernel: str
     grid: tuple[int, ...]
@@ -121,6 +130,13 @@ class LaunchPlan:
     flops: int
     bytes: int
     tc_flops: int = 0  # of ``flops``, those on the tensor cores (bf16 products)
+    out: tuple[int, ...] = ()
+    tile: tuple[int, ...] = ()
+    ins: tuple[tuple, ...] = ()
+    persistent: bool = False
+    dtypes: tuple[str, ...] = ()
+    out_dtype: str = "float32"
+    seeds: int = 0
 
 
 def cdiv(a: int, b: int) -> int:
@@ -245,6 +261,11 @@ def itemsize(dtype: torch.dtype) -> int:
     return 4 if dtype == F32 else 2
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of ``dtype`` (``float32``, ``bfloat16``)."""
+    return str(dtype).removeprefix("torch.")
+
+
 # --------------------------------------------------------------------------
 # single launches
 # --------------------------------------------------------------------------
@@ -254,24 +275,28 @@ def gemm_nn(M: int, N: int, K: int, *, cont: bool = False, dtype=F32) -> LaunchP
     """P (M×N, f32) = X (M×K)·Q (K×N), both of ``dtype`` (bf16: on the
     tensor cores); ``cont`` continues P's chains (reads P)."""
     flops = 2 * M * N * K
+    ins = ((None, M), (N, None))  # X's rows, Q's columns
     if dtype == BF16:
         return LaunchPlan("gemm_nn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (BF16_THREADS,),
                           SMEM_BYTES_BF16, flops,
                           2 * (M * K + K * N) + 4 * M * N * (2 if cont else 1),
-                          tc_flops=flops)
+                          tc_flops=flops, out=(N, M), tile=(TILE, TILE), ins=ins,
+                          dtypes=("bfloat16", "bfloat16"))
     itemsize(dtype)
     return _ring_plan("gemm_nn_f32", M, N, 4, flops,
-                      4 * (M * K + K * N + M * N * (2 if cont else 1)))
+                      4 * (M * K + K * N + M * N * (2 if cont else 1)), ins,
+                      ("float32", "float32"))
 
 
-def _ring_plan(kernel: str, M: int, N: int, a_itemsize: int, flops: int,
-               nbytes: int) -> LaunchPlan:
+def _ring_plan(kernel: str, M: int, N: int, a_itemsize: int, flops: int, nbytes: int,
+               ins: tuple, dtypes: tuple) -> LaunchPlan:
     """A staged f32 launch on the tile :func:`f32_tile` picks: grid (column
     tiles, row tiles)."""
     tile = f32_tile(M, N)
     bm, bn, threads, _ = F32_TILES[tile]
     return LaunchPlan(kernel, (cdiv(N, bn), cdiv(M, bm)), (threads,),
-                      ring_smem(tile, a_itemsize), flops, nbytes)
+                      ring_smem(tile, a_itemsize), flops, nbytes, out=(N, M), tile=(bn, bm),
+                      ins=ins, dtypes=dtypes)
 
 
 def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
@@ -283,25 +308,29 @@ def gemm_tn(M: int, N: int, K: int, *, accumulate: bool = False, dtype=F32,
     flops = 2 * M * N * K
     nbytes = itemsize(dtype) * K * M + itemsize(p_dtype) * K * N + 4 * M * N * (
         2 if accumulate else 1)
+    ins = ((None, M), (N, None))  # X's columns, Y's columns
+    dtypes = (dtype_name(dtype), dtype_name(p_dtype))
     if dtype == BF16 and p_dtype == BF16:
         return LaunchPlan("gemm_tn_bf16", (cdiv(N, TILE), cdiv(M, TILE)), (BF16_THREADS,),
-                          SMEM_BYTES_BF16, flops, nbytes, tc_flops=flops)
+                          SMEM_BYTES_BF16, flops, nbytes, tc_flops=flops, out=(N, M),
+                          tile=(TILE, TILE), ins=ins, dtypes=dtypes)
     if p_dtype != F32:
         raise TypeError(f"no TN kernel takes {dtype} X with {p_dtype} Y")
     kernel = "gemm_tn_f32" if dtype == F32 else "gemm_tn_bf16_f32"
-    return _ring_plan(kernel, M, N, itemsize(dtype), flops, nbytes)
+    return _ring_plan(kernel, M, N, itemsize(dtype), flops, nbytes, ins, dtypes)
 
 
 def omega_fill(rows: int, cols: int, dtype=F32) -> LaunchPlan:
-    """Rows × cols of Ω in ``dtype``, written once; its work is integer,
-    not FLOPs."""
-    return LaunchPlan("omega_fill" if dtype == F32 else "omega_fill_bf16",
+    """Rows × cols of Ω in ``dtype``, written once from the two seed
+    words; its work is integer, not FLOPs."""
+    return LaunchPlan("omega_fill_f32" if dtype == F32 else "omega_fill_bf16",
                       (cdiv(rows, FILL_BLOCK[1]), cdiv(cols, FILL_BLOCK[0])),
-                      FILL_BLOCK, 0, 0, itemsize(dtype) * rows * cols)
+                      FILL_BLOCK, 0, 0, itemsize(dtype) * rows * cols, out=(rows, cols),
+                      tile=(FILL_BLOCK[1], FILL_BLOCK[0]), out_dtype=dtype_name(dtype), seeds=2)
 
 
 def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
-              kernel: str = "recompute_f32") -> LaunchPlan:
+              kernel: str = "recompute_f32", a2: bool = True) -> LaunchPlan:
     """One fused launch: P (n×k̃) over k1 contraction columns, then an
     m2-row accumulator bucket.  ``nbytes`` depends on which operands are
     the entry point's inputs and outputs.  The f32 kernel runs both phases
@@ -310,16 +339,26 @@ def recompute(n: int, kt: int, k1: int, m2: int, nbytes: int,
     The bf16 kernels (``projgram_bf16``, ``power_recompute_bf16``) run the
     projection on the tensor cores and the accumulation on the CUDA cores,
     on the bf16 tile's block: one per SM, its ring's dynamic shared
-    memory."""
+    memory.  ``a2``: phase 2 reads an operand of its own (the power form's
+    A), not P (the Gram's)."""
     proj = 2 * n * k1 * kt
+    rows = max(n, m2)
+    # phase 1 tiles P (n × k̃) by X's rows and Q's columns, phase 2 the
+    # bucket (m2 × k̃) by A2's columns (or P's) and P's columns
+    ins = ((n, None), (None, kt)) + (((m2, None),) if a2 else ())
+    w = "float32" if kernel == "recompute_f32" else "bfloat16"
+    dtypes = (w, w, w) if a2 else (w, w)
     if kernel == "recompute_f32":
         bm, bn, threads, per_sm = F32_TILES[FUSED_F32_TILE]
-        tiles = max(cdiv(n, bm), cdiv(m2, bm)) * cdiv(kt, bn)
+        tiles = cdiv(rows, bm) * cdiv(kt, bn)
         return LaunchPlan(kernel, (min(per_sm * SMS, tiles),), (threads,),
-                          ring_smem(FUSED_F32_TILE), proj + 2 * n * m2 * kt, nbytes)
-    tiles = max(cdiv(n, TILE), cdiv(m2, TILE)) * cdiv(kt, TILE)
+                          ring_smem(FUSED_F32_TILE), proj + 2 * n * m2 * kt, nbytes,
+                          out=(rows, kt), tile=(bm, bn), ins=ins, persistent=True, dtypes=dtypes)
+    tiles = cdiv(rows, TILE) * cdiv(kt, TILE)
     return LaunchPlan(kernel, (min(BF16_BLOCKS_PER_SM * SMS, tiles),), (BF16_THREADS,),
-                      SMEM_BYTES_BF16, proj + 2 * n * m2 * kt, nbytes, tc_flops=proj)
+                      SMEM_BYTES_BF16, proj + 2 * n * m2 * kt, nbytes, tc_flops=proj,
+                      out=(rows, kt), tile=(TILE, TILE), ins=ins, persistent=True,
+                      dtypes=dtypes)
 
 
 def _per_bucket(rows: int, kt: int, one_bucket) -> tuple[LaunchPlan, ...]:
@@ -424,10 +463,16 @@ def plan_project_rows(M: int, K: int, N: int) -> tuple[LaunchPlan, ...]:
     for m0 in range(0, M, step):
         ms = min(step, M - m0)
         part = 4 * S * ms * N
+        # a segment block: bm rows of the slice, one K segment, bn columns
         out.append(LaunchPlan("gemm_rows_segment", (cdiv(ms, bm), S, cdiv(N, bn)), (threads,),
-                              rows_smem(tile), 2 * ms * K * N, 4 * (ms * K + K * N) + part))
+                              rows_smem(tile), 2 * ms * K * N, 4 * (ms * K + K * N) + part,
+                              out=(ms, K, N), tile=(bm, ROWS_KSEG, bn),
+                              ins=((ms, K, None), (None, K, N)), dtypes=("float32", "float32")))
+        # a tree thread: one element of the slice, its S partials
         out.append(LaunchPlan("gemm_rows_tree", (cdiv(ms * N, ROWS_TREE_THREADS),),
-                              (ROWS_TREE_THREADS,), 0, ms * N * (S - 1), part + 4 * ms * N))
+                              (ROWS_TREE_THREADS,), 0, ms * N * (S - 1), part + 4 * ms * N,
+                              out=(ms * N,), tile=(ROWS_TREE_THREADS,), ins=((ms * N,),),
+                              dtypes=("float32",)))
     return tuple(out)
 
 
@@ -435,8 +480,8 @@ def plan_matmul_tn(K: int, M: int, N: int, *, dtype=F32) -> tuple[LaunchPlan, ..
     return (gemm_tn(M, N, K, dtype=dtype),)
 
 
-def plan_omega_fill(rows: int, kt: int) -> tuple[LaunchPlan, ...]:
-    return (omega_fill(rows, kt),)
+def plan_omega_fill(rows: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
+    return (omega_fill(rows, kt, dtype),)
 
 
 def plan_projgram(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
@@ -445,7 +490,8 @@ def plan_projgram(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ..
     w = itemsize(dtype)
     kernel = "recompute_f32" if dtype == F32 else "projgram_bf16"
     return _per_bucket(kt, kt, lambda r0, r1: (recompute(
-        n, kt, d, r1 - r0, w * (n * d + d * kt) + 4 * (n * kt + (r1 - r0) * kt), kernel),))
+        n, kt, d, r1 - r0, w * (n * d + d * kt) + 4 * (n * kt + (r1 - r0) * kt), kernel,
+        a2=False),))
 
 
 def plan_projgram_seeded(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchPlan, ...]:
@@ -459,7 +505,7 @@ def plan_projgram_seeded(n: int, d: int, kt: int, *, dtype=F32) -> tuple[LaunchP
         return lambda ks, cont: recompute(
             n, kt, ks, r1 - r0,
             w * (n * ks + ks * kt) + 4 * (n * kt * (2 if cont else 1) + (r1 - r0) * kt),
-            kernel)
+            kernel, a2=False)
     return _per_bucket(kt, kt, lambda r0, r1: _seeded(n, d, kt, last(r0, r1), dtype))
 
 

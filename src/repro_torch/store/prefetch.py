@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, List, NamedTuple, Optional, Tuple
@@ -80,9 +79,9 @@ class HostStaging:
         self.dtype = dtype  # logical dtype of numpy rows (the store's)
 
     def stage(self, item, stop: threading.Event):
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         staged = Pair(_host(item[0], self.dtype), _host(item[1], self.dtype))
-        return staged, time.perf_counter() - t0
+        return staged, obs.monotonic() - t0
 
     def deliver(self, staged) -> Pair:
         return staged
@@ -213,10 +212,10 @@ class DeviceStaging:
         i = self._staged % len(self.slots)
         j = self._staged % len(self._bufs)
         slot = self.slots.take(i)
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         self.slots.fill(slot.a, a)
         self.slots.fill(slot.b, b)
-        read_s = time.perf_counter() - t0
+        read_s = obs.monotonic() - t0
         self._wait_free(j, stop)
         with torch.cuda.device(self.device):
             buf = self._buffer(j, rows)
@@ -344,12 +343,12 @@ class ChunkPrefetcher:
     def _produce(self) -> None:
         try:
             while not self._stop.is_set():
-                t0 = time.perf_counter()
+                t0 = obs.monotonic()
                 try:
                     item = next(self._src)  # a memory map's slice: its pages are read below
                 except StopIteration:
                     break
-                t_next = time.perf_counter() - t0
+                t_next = obs.monotonic() - t0
                 staged, read_s = self._staging.stage(item, self._stop)
                 self.read_s += t_next + read_s
                 self.rows += int(item[0].shape[0])
@@ -370,9 +369,9 @@ class ChunkPrefetcher:
 
     def __next__(self) -> Pair:
         self._staging.release()
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         item = self._q.get()
-        self.stall_s += time.perf_counter() - t0
+        self.stall_s += obs.monotonic() - t0
         if item is _SENTINEL:
             self._q.put(_SENTINEL)  # a further pull stops too
             raise StopIteration
@@ -423,9 +422,9 @@ class SyncChunkMeter:
 
     def __next__(self) -> Pair:
         self._staging.release()
-        t0 = time.perf_counter()
+        t0 = obs.monotonic()
         item = next(self._src)
-        t_next = time.perf_counter() - t0
+        t_next = obs.monotonic() - t0
         staged, read_s = self._staging.stage(item, threading.Event())
         self.read_s += t_next + read_s
         self.chunks += 1

@@ -300,7 +300,7 @@ def test_fused_f32_plans_take_the_fused_tile(kt, slab_tile, grid):
         8192, 1024, 2 ** 19, kt) + plan.plan_projgram_seeded(8192, 9001, kt)
     assert plan.f32_tile(8192, kt) == slab_tile
     for p in launches:
-        if p.kernel == "omega_fill":
+        if p.kernel == "omega_fill_f32":
             continue
         i = plan.FUSED_F32_TILE if p.kernel == "recompute_f32" else slab_tile
         assert p.block == (plan.F32_TILES[i][2],) and p.smem_bytes == plan.ring_smem(i)

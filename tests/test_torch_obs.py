@@ -117,16 +117,22 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_)", re.MULTILINE)
 
 def test_obs_and_analysis_import_neither_jax_nor_the_reference():
     files = _files(ROOT, "obs") + _files(ROOT, "analysis")
-    assert len(files) == 9
+    assert len(files) == 13
     hits = [f"{f.name}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]
     assert hits == []
-    # only trace.py makes CUDA events, inside the function that records one
+    # torch loads inside functions only: trace.py's CUDA events, the
+    # sanitizer's copies of device leaves, the explorer's payloads and the
+    # kernel gate's device
     torch_imports = [f.name for f in files if re.search(r"^\s*import torch", f.read_text(),
                                                         re.MULTILINE)]
-    assert torch_imports == ["trace.py"]
+    assert sorted(torch_imports) == ["kernel_check.py", "protocol.py", "sanitize.py", "trace.py"]
+    assert not [f.name for f in files if re.search(r"^import torch", f.read_text(), re.MULTILINE)]
     code = ("import sys; import repro_torch.obs, repro_torch.obs.report, "
-            "repro_torch.obs.chrometrace, repro_torch.obs.cost, repro_torch.analysis; "
+            "repro_torch.obs.chrometrace, repro_torch.obs.cost, repro_torch.analysis, "
+            "repro_torch.analysis.lint, repro_torch.analysis.kernel_check, "
+            "repro_torch.analysis.protocol, repro_torch.analysis.sanitize, "
+            "repro_torch.analysis.__main__; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)

@@ -235,8 +235,8 @@ def test_recompute_plan_charges_the_projection_per_bucket():
     assert one.bytes == 4 * (n * 9001 + 9001 * 970 + n * 970 + 970 * 970)
     # a seeded call: an omega_fill and an NN launch per Ω slab, the last fused
     seeded = plan.plan_projgram_seeded(n, 9001, 970)
-    assert [p.kernel for p in seeded] == ["omega_fill", "gemm_nn_f32"] * 2 + [
-        "omega_fill", "recompute_f32"]
+    assert [p.kernel for p in seeded] == ["omega_fill_f32", "gemm_nn_f32"] * 2 + [
+        "omega_fill_f32", "recompute_f32"]
     assert plan.cost(seeded)[0] == one.flops
 
 

@@ -389,7 +389,7 @@ def test_seeded_bf16_plans_count_two_bytes_per_element():
         n, 1024, d, 970, accumulate=True))[0]
     # f32 plans keep their bytes; bf16 halves the operand bytes of the stage
     f32_stage = plan.plan_proj_stage_seeded(n, d, kt)
-    assert f32_stage[0].bytes == 2 * fill.bytes and f32_stage[0].kernel == "omega_fill"
+    assert f32_stage[0].bytes == 2 * fill.bytes and f32_stage[0].kernel == "omega_fill_f32"
     # staged: the bf16 seeded stage, then the f32 P's sweep / Gram
     *_, sweep = plan.plan_powerpass_staged(n, d, d, kt, seeded=True, dtype=BF16)
     assert sweep.kernel == "gemm_tn_bf16_f32"
